@@ -1,9 +1,10 @@
 """Parameters between the JAX package and the port.
 
 A graph's parameters are a nested list of float32 arrays (filter
-responses, the LUFS target) — the op "weights".  The JAX package's
-builders return them as numpy arrays; the port's builders return the same
-nesting, and :func:`to_device` turns either into tensors on a device.
+responses, the LUFS target, the staged FFT's plan tables) — the op
+"weights".  The JAX package's builders return them as numpy arrays (its
+Pallas-route plan tables as device arrays); the port's builders return the
+same nesting, and :func:`to_device` turns either into tensors on a device.
 """
 
 from __future__ import annotations
@@ -12,18 +13,32 @@ import numpy as np
 import torch
 
 
-def to_device(params, device):
-    """The same nesting as ``params`` (lists, tuples, numpy arrays and
-    scalars), with every array as a tensor on ``device``."""
+def to_device(params, device, _seen=None):
+    """The same nesting as ``params`` (lists, tuples, arrays, tensors and
+    scalars), with every array as a tensor on ``device``.  An array object
+    that occurs more than once (the plan tables that several fused sites
+    share) becomes one tensor."""
+    seen = {} if _seen is None else _seen
     if isinstance(params, (list, tuple)):
-        return [to_device(p, device) for p in params]
-    return torch.as_tensor(np.asarray(params), device=device)
+        return [to_device(p, device, seen) for p in params]
+    key = id(params)
+    if key not in seen:
+        if isinstance(params, torch.Tensor):
+            t = params.to(device)
+        else:
+            a = np.asarray(params)
+            t = torch.as_tensor(a if a.flags.writeable else a.copy(),
+                                device=device)
+        seen[key] = (params, t)  # keeps params alive, so its id stays its own
+    return seen[key][1]
 
 
 def params_from_jax(params, device=None):
-    """The port's params from the nested list of numpy arrays that
-    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` returns, as tensors on
-    ``device`` (default ``cuda``)."""
+    """The port's params from the nested list that
+    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` returns (numpy arrays;
+    on its Pallas route also the device arrays of ``fft_pallas.
+    plan_params``), as tensors on ``device`` (default ``cuda``) in the same
+    nesting."""
     from . import resolve_device
 
     return to_device(params, resolve_device(device))

@@ -1,0 +1,165 @@
+// Forward B+C, K responses, inverse C+B of the staged FFT.
+//
+// Replaces the Pallas TPU kernel amw_tpu/ops/fft_pallas.py
+// `_stage_bccb_multi` (body `_stage_bccb_multi_kernel`, C stage
+// `_cstage_fwd` / `_cstage_inv`).  Input: stage A's output, two planes
+// [R, nfft] viewed [R, 128, 128, C] (a', b, c); responses [K, 2, nfft] in
+// the permuted storage order (k3 = p / c1 + C2 * (p % c1) at position p of a
+// C-row, c1 = min(C, 128), C2 = C / c1).  Output: two planes [K*R, nfft]
+// (= [K, R, 128, 128, C]) ready for the inverse stage A.  Per (row, a'):
+//
+//   y = W_B x          (128-point DFT along b)
+//   y = y * T2         (T2[b', c] = W_(128 C)^(b' c))
+//   Y = DFT_C(y)       (along c, per b')
+//   z_k = W_B^H (DFT_C^H(Y * H_k) * conj T2)    for k < K.
+//
+// On the TPU the whole [128, C] complex tile of one (row, a') sits in VMEM
+// (512 KB at C = 512) and never leaves it.  An SM has 227 KB of shared
+// memory, so the tile fits one block only for C <= 128.  This port takes
+// the split through device memory that works for every C in 32..1024
+// (design (b)), three kernels launched by amw_fft_bccb:
+//
+//   1. col_dft128_kernel (fft128.cuh): forward B and T2, x -> scratch z;
+//   2. cstage_multi_kernel: per C-row of z, the forward C-DFT, then for
+//      each response the product and the inverse C-DFT, into out[k];
+//   3. col_dft128_kernel: conj T2 and inverse B, in place on out.
+//
+// Bound on an H100: device-memory bytes.  The fused bound (x read once, K
+// responses read once, K outputs written once) at the 180 s slice's shapes
+// (R = 8, nfft = 2^23) is 1.75 GB (0.52 ms at 3.35 TB/s) at K = 2 and
+// 2.95 GB (0.88 ms) at K = 4.  The split adds the scratch round trip
+// (2 planes written and read, 1.07 GB) and the outputs' round trip through
+// pass 3 (2K planes read and written again, 2.15 GB at K = 2, 4.3 GB at
+// K = 4).  The C stage runs radix-2 transforms of C points on 2048-point
+// groups of rows in shared memory (8 + 8 KB spectrum, 8 + 8 KB work, the
+// C/2 twiddles), so the spectrum is read from z once and each response and
+// output plane streams once; a cluster-fused design that keeps the tile on
+// chip is later work.
+#include "fft128.cuh"
+
+using namespace amw_fft;
+
+namespace {
+
+constexpr int kCElems = 2048;  // complex points of z per block of pass 2
+constexpr int kMaxC = 1024;
+
+// In place over each C-point row of re/im [kCElems]: bit-reversed in,
+// natural order out; `conj_tw` runs the inverse (conjugate) transform.
+__device__ __forceinline__ void fft_rows(float* re, float* im,
+                                         const float* twr, const float* twi,
+                                         int C, int logC, bool conj_tw) {
+  for (int s = 0; s < logC; ++s) {
+    __syncthreads();
+    const int half = 1 << s;
+    const int step = C >> (s + 1);
+    for (int b = threadIdx.x; b < kCElems / 2; b += kThreads) {
+      const int row = b >> (logC - 1);
+      const int bb = b & ((C >> 1) - 1);
+      const int j = bb & (half - 1);
+      const int i0 = (row << logC) + ((bb - j) << 1) + j;
+      const int i1 = i0 + half;
+      const float wr = twr[j * step];
+      const float wi = conj_tw ? -twi[j * step] : twi[j * step];
+      const float vr = re[i1], vi = im[i1];
+      const float xr = vr * wr - vi * wi;
+      const float xi = vr * wi + vi * wr;
+      const float ur = re[i0], ui = im[i0];
+      re[i0] = ur + xr;
+      im[i0] = ui + xi;
+      re[i1] = ur - xr;
+      im[i1] = ui - xi;
+    }
+  }
+  __syncthreads();
+}
+
+// Block: the kCElems consecutive points of z from blockIdx.x * kCElems,
+// i.e. kCElems / C whole C-rows of one signal row (kCElems divides nfft).
+__global__ void __launch_bounds__(kThreads)
+cstage_multi_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                    const float* __restrict__ resps,
+                    float* __restrict__ out_r, float* __restrict__ out_i,
+                    long long plane, long long nfft, int C, int logC, int K) {
+  __shared__ float sr[kCElems], si[kCElems];  // spectrum, natural order
+  __shared__ float wr[kCElems], wi[kCElems];  // one response's product
+  __shared__ float twr[kMaxC / 2], twi[kMaxC / 2];
+  const long long base = static_cast<long long>(blockIdx.x) * kCElems;
+  for (int j = threadIdx.x; j < C / 2; j += kThreads) {
+    float s, c;
+    sincospif(-static_cast<float>(j) / (C / 2), &s, &c);
+    twr[j] = c;
+    twi[j] = s;
+  }
+  for (int e = threadIdx.x; e < kCElems; e += kThreads) {
+    const int dst = (e & ~(C - 1)) + bitrev(e & (C - 1), logC);
+    sr[dst] = zr[base + e];
+    si[dst] = zi[base + e];
+  }
+  fft_rows(sr, si, twr, twi, C, logC, false);
+
+  const int c1 = C < 128 ? C : 128;
+  const int C2 = C / c1;
+  const long long roff = base % nfft;  // offset inside the signal row
+  for (int k = 0; k < K; ++k) {
+    const float* hr = resps + static_cast<long long>(k) * 2 * nfft + roff;
+    const float* hi = hr + nfft;
+    for (int e = threadIdx.x; e < kCElems; e += kThreads) {
+      const int rbase = e & ~(C - 1);
+      const int p = e & (C - 1);
+      const int k3 = p / c1 + C2 * (p % c1);
+      const float a = sr[rbase + k3], b = si[rbase + k3];
+      const float h0 = hr[e], h1 = hi[e];
+      const int dst = rbase + bitrev(k3, logC);
+      wr[dst] = a * h0 - b * h1;
+      wi[dst] = a * h1 + b * h0;
+    }
+    fft_rows(wr, wi, twr, twi, C, logC, true);
+    float* orr = out_r + static_cast<long long>(k) * plane + base;
+    float* ori = out_i + static_cast<long long>(k) * plane + base;
+    for (int e = threadIdx.x; e < kCElems; e += kThreads) {
+      orr[e] = wr[e];
+      ori[e] = wi[e];
+    }
+    __syncthreads();  // wr/wi are rewritten for the next response
+  }
+}
+
+}  // namespace
+
+// x*: [R, nfft] stage-A output; resps: [K, 2, nfft]; t2*/it2*: [128, C]
+// forward / inverse T2; z*: [R, nfft] scratch; out*: [K*R, nfft].
+extern "C" int amw_fft_bccb(const float* xr, const float* xi,
+                            const float* resps, const float* t2r,
+                            const float* t2i, const float* it2r,
+                            const float* it2i, float* zr, float* zi,
+                            float* out_r, float* out_i, int R, int C, int K,
+                            void* stream) {
+  if (R <= 0 || K <= 0) return 0;
+  if (C < kCols || C > kMaxC || (C & (C - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int logC = 0;
+  while ((1 << logC) < C) ++logC;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long bc = static_cast<long long>(kN) * C;
+  const long long nfft = kN * bc;
+  const int strips = C / kCols;
+
+  col_dft128_kernel<false, false, kOutPlanes>
+      <<<R * kN * strips, kThreads, 0, st>>>(xr, xi, bc, bc, R * kN, C, t2r,
+                                             t2i, zr, zi, 0, 1.0f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cstage_multi_kernel<<<static_cast<unsigned>(R * nfft / kCElems), kThreads,
+                        0, st>>>(zr, zi, resps, out_r, out_i, R * nfft, nfft,
+                                 C, logC, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  col_dft128_kernel<true, false, kOutPlanes>
+      <<<K * R * kN * strips, kThreads, 0, st>>>(
+          out_r, out_i, bc, bc, K * R * kN, C, it2r, it2i, out_r, out_i, 0,
+          1.0f);
+  return static_cast<int>(cudaGetLastError());
+}

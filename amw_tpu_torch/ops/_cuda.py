@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled on first use by its own ``nvcc``
 process (all started together) into a shared library with a plain C
-interface, under ``amw_tpu_torch/_build/`` (named by the source's hash, so
-an edited source rebuilds), and loaded with ``ctypes``::
+interface, under ``amw_tpu_torch/_build/`` (named by the hash of the source
+and of the shared ``csrc/*.cuh`` headers, so an edited source rebuilds),
+and loaded with ``ctypes``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
@@ -37,6 +38,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _ENTRIES = {
     "amw_box_smooth": ("box_smooth", "ppiii"),
     "amw_env_gain": ("env_gain", "pppiiiiifffff"),
+    "amw_fft_stage_a": ("fft_stage_a", "ppppppiiiiiiif"),
+    "amw_fft_inv_join": ("fft_stage_a", "pppppiiif"),
+    "amw_fft_bccb": ("fft_bccb", "pppppppppppiii"),
+    "amw_fft_reduce_packed": ("fft_reduce", "ppppppiiif"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -58,7 +63,9 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers are part of every source's key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(ARCH_FLAGS).encode()).hexdigest()
     return BUILD / f"{src.stem}-{digest[:16]}.so"
 

@@ -9,6 +9,12 @@ port', item 4).
 Reference: backend/app/pipeline.py:333-481 (4-band Butterworth-2 filtfilt
 split, ``apply_multiband_dynamics``) and :610-641 (``apply_dynamics`` =
 multiband → maximizer → brickwall at -1.5 dBTP).
+
+At plans the staged FFT takes (``fft_staged.site_plan``) the hybrid split
+runs through ``fft_staged.site_roundtrip``: with band maps, one pipeline
+from the signal to the mixed output (the maps and the band sum inside the
+final inverse kernel, which reads each :class:`BandMap`'s parameter row);
+without, the four bands.
 """
 
 from __future__ import annotations
@@ -21,8 +27,8 @@ import torch
 from ..constants import (MULTIBAND_CONFIG, MULTIBAND_CROSSOVERS_HZ,
                          TRUE_PEAK_LIMIT_DB)
 from ..spec import GraphSpec
-from . import design, validctx
-from .basic import compress_soft_knee, limiter, maximizer
+from . import design, fft_staged, validctx
+from .basic import compress_soft_knee, db_to_lin, limiter, maximizer
 from .fdfilter import odd_ext
 from .zphase import _edge_windows, make_zp, make_zp_from_power, scipy_padlen
 
@@ -100,23 +106,40 @@ def band_split_plan(spec: GraphSpec, crossovers_hz=None, pre=None,
             # short signals: pure two-pass
             return build_twopass(spec)
         n = spec.n
-        nfft = design.fft_plan(n + 2 * padlen + 3 * settle + 16, device)
+        nfft, staged = fft_staged.site_plan(n + 2 * padlen + 3 * settle + 16,
+                                            device)
         R_pre = pre.power(nfft) if pre is not None else 1.0
-        R = np.stack([
-            np.prod([design.zero_phase_power([ba], nfft) for ba in chain],
-                    axis=0) * R_pre
-            for chain in stages]).astype(np.float32)  # [4, nbins]
+        R_half = [np.prod([design.zero_phase_power([ba], nfft)
+                           for ba in chain], axis=0) * R_pre
+                  for chain in stages]
         small_spec = dataclasses.replace(spec, n=w_in, hybrid=False)
         p_small, f_small = build_twopass(small_spec, apply_maps=False)
-        params = [R, p_small]
+        if staged:
+            params = fft_staged.site_params(R_half, nfft, p_small)
+        else:
+            params = [np.stack(R_half).astype(np.float32), p_small]
 
         def split_fn(x, params):
-            Rd, ps = params
+            Rd, ps = params[:2]
             nv = validctx.n_valid()
             xr = validctx.right_window(x, w_in, nv)
             with validctx.cleared():
-                core = odd_ext(x, padlen)
+                # staged: extend and zero-pad to nfft in one concatenate
+                core = odd_ext(x, padlen, pad_to=nfft if staged else None)
                 lr = f_small(torch.stack([x[..., :w_in], xr]), ps)
+            if staged:
+                if band_maps is not None:
+                    # maps and band sum inside the final inverse kernel;
+                    # full nfft-length output, the splice slices past the
+                    # odd extension (off=padlen)
+                    mix = fft_staged.site_roundtrip(core, params, nfft,
+                                                    band_maps)
+                    el = sum(band_maps[i](lr[i][0]) for i in range(4))
+                    er = sum(band_maps[i](lr[i][1]) for i in range(4))
+                    return validctx.splice(mix, el, er, n, L, nv, off=padlen)
+                ys = fft_staged.site_roundtrip(core, params, nfft)
+                return [validctx.splice(ys[i], lr[i][0], lr[i][1], n, L, nv,
+                                        off=padlen) for i in range(4)]
             # One batched inverse over the 4 band responses.
             X = torch.fft.rfft(core, n=nfft, dim=-1)
             Rb = Rd.reshape((4,) + (1,) * (X.ndim - 1) + (Rd.shape[-1],))
@@ -153,6 +176,50 @@ def band_split_plan(spec: GraphSpec, crossovers_hz=None, pre=None,
     return params, split_fn
 
 
+@dataclasses.dataclass(frozen=True)
+class BandMap:
+    """One band's memoryless map: ``compress_soft_knee`` → ``limiter`` →
+    ``gain``.  Callable on a tensor (the plain path), and described by
+    :meth:`table_row` for the staged FFT's reduce kernel."""
+
+    threshold_db: float
+    ratio: float
+    knee_db: float
+    max_upward_boost_db: float
+    limit_db: float
+    gain: float
+
+    def __call__(self, band: torch.Tensor) -> torch.Tensor:
+        band = compress_soft_knee(
+            band, threshold_db=self.threshold_db, ratio=self.ratio,
+            knee_db=self.knee_db,
+            max_upward_boost_db=self.max_upward_boost_db)
+        return limiter(band, threshold_db=self.limit_db) * self.gain
+
+    def table_row(self) -> tuple:
+        """``(mode, p1..p5, limit, gain)`` by the formulas and branches of
+        ``basic.compress_soft_knee`` (see ``csrc/fft_reduce.cu``): mode 0
+        bypass, 1 upward boost (threshold dB, 1 - ratio, max boost dB),
+        2 hard knee (threshold, ratio), 3 soft knee (threshold, ratio,
+        lower, upper, knee slope)."""
+        thresh = db_to_lin(self.threshold_db)
+        knee = max(0.0, float(self.knee_db))
+        if self.ratio <= 0.0 or self.ratio == 1.0:
+            head = (0, 0.0, 0.0, 0.0, 0.0, 0.0)
+        elif self.ratio < 1.0:
+            head = (1, self.threshold_db, 1.0 - self.ratio,
+                    max(0.1, float(self.max_upward_boost_db)), 0.0, 0.0)
+        elif knee < 0.5:
+            head = (2, thresh, self.ratio, 0.0, 0.0, 0.0)
+        else:
+            lower = thresh * db_to_lin(-knee)
+            upper = thresh * db_to_lin(knee)
+            slope = ((thresh + (upper - thresh) / self.ratio - lower)
+                     / (upper - lower))
+            head = (3, thresh, self.ratio, lower, upper, slope)
+        return head + (db_to_lin(self.limit_db), self.gain)
+
+
 def build_multiband_dynamics(spec: GraphSpec, knee_db: float = 6.0,
                              crossovers_hz=None, band_ratios=None,
                              max_upward_boost_db: float = 12.0,
@@ -170,14 +237,8 @@ def build_multiband_dynamics(spec: GraphSpec, knee_db: float = 6.0,
     def _map(i):
         lim_db, comp_ratio, comp_db, gain = MULTIBAND_CONFIG[i]
         ratio = ratios_override[i] if ratios_override else comp_ratio
-
-        def m(band):
-            band = compress_soft_knee(
-                band, threshold_db=comp_db, ratio=ratio, knee_db=knee_db,
-                max_upward_boost_db=max_upward_boost_db)
-            return limiter(band, threshold_db=lim_db) * gain
-
-        return m
+        return BandMap(comp_db, ratio, knee_db, max_upward_boost_db, lim_db,
+                       gain)
 
     # soft-knee is memoryless per sample, so the per-band compress,
     # limiter, gain and the band sum all fuse into the split.

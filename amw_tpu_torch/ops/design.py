@@ -6,12 +6,20 @@ float64, and handed to the device as a plain tensor ("weights").  The
 device side (:mod:`amw_tpu_torch.ops.fdfilter`) only does rFFT → multiply
 → irFFT.
 
-The FFT size rule is the JAX package's CPU rule (no TPU preference), so the
-port and the JAX package on the CPU pick the same ``nfft``.  The TPU rule
-(:func:`tpu_fft_plan`, with :func:`plan_ok` of ``amw_tpu/ops/fft_pallas``)
-is kept only for :func:`fft_plan`'s guard: on CUDA the port refuses a plan
-that the JAX package runs through its Pallas FFT kernels on a TPU, because
-those kernels have no Hopper port yet.
+The FFT size rule is the JAX package's CPU rule (:func:`next_fft_size`,
+no TPU preference), so the port and the JAX package on the CPU pick the
+same ``nfft``.  Two exceptions follow the JAX package on a TPU
+(:func:`tpu_fft_plan`, which prefers a power of two the staged FFT takes,
+:func:`plan_ok`):
+
+- the three fused sites of the v1 chain (``fused`` and the hybrid band
+  split in ``bands``) plan with ``fft_staged.site_plan``, which takes the
+  TPU plan and the staged FFT (CUDA kernels) on CUDA, and on the CPU when
+  a test forces that route;
+- every other full-length FFT builder goes through :func:`fft_plan` /
+  :func:`check_fft_plan`, which refuse on CUDA a plan that the JAX package
+  runs through its Pallas ``apply_response`` kernel on a TPU: that kernel
+  has no Hopper port yet.
 """
 
 from __future__ import annotations
@@ -160,18 +168,16 @@ def next_fft_size(n: int) -> int:
     return best
 
 
-# Tiling of the JAX package's staged Pallas FFT (amw_tpu/ops/fft_pallas.py):
-# nfft = A * B * C with A = B = 128 and C a power of two in [32, 1024].
-_PALLAS_A = _PALLAS_B = 128
 # AMW_FFT_PREFER_PALLAS_MAX's default in amw_tpu/ops/design.py.
 _PREFER_PALLAS_MAX = 1.75
 
 
 def plan_ok(nfft: int) -> bool:
-    """Does the JAX package's Pallas FFT take an ``nfft``-point plan?"""
-    if nfft % (_PALLAS_A * _PALLAS_B):
+    """Does the staged FFT take an ``nfft``-point plan?  ``nfft = 128·128·C``
+    with ``C`` a power of two in [32, 1024], i.e. 2^19..2^24."""
+    if nfft % (128 * 128):
         return False
-    c = nfft // (_PALLAS_A * _PALLAS_B)
+    c = nfft // (128 * 128)
     return 32 <= c <= 1024 and (c & (c - 1)) == 0
 
 
@@ -189,11 +195,11 @@ def tpu_fft_plan(n: int) -> int:
 
 
 def check_fft_plan(n: int, device) -> None:
-    """Raise ``NotImplementedError`` for an FFT of at least ``n`` points on
-    CUDA when the JAX package would run it through its Pallas FFT kernels
-    on a TPU (ROADMAP.md, 'TPU kernels to port', the FFT family).  ``n``
-    may be the requested length or the CPU rule's size for it: both give
-    the same TPU plan."""
+    """Raise ``NotImplementedError`` for a standalone FFT pass of at least
+    ``n`` points on CUDA when the JAX package would run it through its
+    Pallas ``apply_response`` (kernel 8, ``_stage_bc_cb``) on a TPU
+    (ROADMAP.md, 'TPU kernels to port').  ``n`` may be the requested length
+    or the CPU rule's size for it: both give the same TPU plan."""
     import torch
 
     if torch.device(device).type != "cuda":
@@ -201,10 +207,10 @@ def check_fft_plan(n: int, device) -> None:
     plan = tpu_fft_plan(n)
     if plan_ok(plan):
         raise NotImplementedError(
-            f"FFT plan {plan} (for {n} points) runs through the Pallas FFT "
-            "kernels of amw_tpu/ops/fft_pallas.py on a TPU; their Hopper "
-            "port is the next slice (ROADMAP.md, 'TPU kernels to port': "
-            "the 180 s standard path)")
+            f"FFT plan {plan} (for {n} points): a standalone pass the JAX "
+            "package runs through its Pallas apply_response kernel "
+            "(amw_tpu/ops/fft_pallas.py _stage_bc_cb) on a TPU, which has no "
+            "Hopper port yet (ROADMAP.md, 'TPU kernels to port', kernel 8)")
 
 
 def fft_plan(n: int, device) -> int:

@@ -1,0 +1,589 @@
+"""Staged permuted-spectrum FFT: the counterpart of ``amw_tpu/ops/fft_pallas.py``.
+
+An ``nfft``-point transform with ``nfft = A·B·C`` (A = B = 128, C a power
+of two in [32, 1024], i.e. nfft in [2^19, 2^24]) runs as three stages over
+the ``[A, B, C]`` view of each row:
+
+- stage A: a 128-point DFT along the A axis, times the stage-1 twiddle
+  ``t1[a', col] = W_N^(a'·col)`` (``col = b·C + c``);
+- stage B: a 128-point DFT along the B axis, times ``T2[b', c] =
+  W_(BC)^(b'·c)``;
+- stage C: a C-point DFT along the C axis.
+
+The spectrum is left digit-permuted: ``X[k]`` with ``k = a' + A·b' +
+A·B·kc(p)`` sits at ``a'·BC + b'·C + p`` (:func:`_perm`, the JAX package's
+storage order exactly, composite C stage included).  Every use here is a
+convolution, so responses are permuted once on the host
+(:func:`permute_full_response`) and the inverse stages (adjoint, reversed)
+restore natural order.  Responses built for the JAX package therefore
+carry over unchanged.
+
+Four of the JAX package's Pallas kernels are ported, each as a CUDA
+kernel (``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
+``torch.matmul`` with the DFT matrices, f32 arithmetic):
+
+======================================  =====================================
+``fft_pallas`` kernel                   here
+======================================  =====================================
+``_stage_a`` (complex, real-in,         :func:`_stage_a`: ``stage_a_plain`` /
+real-out)                               ``stage_a_cuda`` (fft_stage_a.cu)
+``_stage_bccb_multi``                   :func:`_stage_bccb_multi`:
+                                        ``bccb_multi_plain`` /
+                                        ``bccb_multi_cuda`` (fft_bccb.cu)
+``_stage_a_inv_join``                   :func:`_stage_a_inv_join`:
+                                        ``inv_join_plain`` /
+                                        ``inv_join_cuda`` (fft_stage_a.cu)
+``_reduce_stage_a_packed``              :func:`_reduce_stage_a_packed`:
+                                        ``reduce_packed_plain`` /
+                                        ``reduce_packed_cuda`` (fft_reduce.cu)
+======================================  =====================================
+
+A dispatcher takes the plain version for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; each ``*_cuda`` wrapper counts its
+launches in ``.launches``.  The unpacked reduce (``_reduce_stage_a``, odd
+row counts) is not ported: :func:`roundtrip_multi_reduce` raises for it on
+CUDA (ROADMAP.md, 'TPU kernels to port', kernel 12).
+
+The plan tables (``plan_params``: t1 and T2 for both directions) are
+runtime parameters in the JAX package's nesting, float32 numpy arrays from
+one cache per ``nfft``; ``convert.to_device`` uploads each of them once per
+parameter tree, so the three fused sites of a chain share one copy on the
+card.  The port carries none of the JAX module's ``AMW_FFT_*`` switches: it
+always runs the fused round trip with row packing, the JAX defaults.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import design
+from .design import plan_ok
+
+A = 128
+B = 128
+C1 = 128  # sub-factor of the C axis (C = C2·C1 when C >= 128)
+
+
+def enabled(nfft: int, device) -> bool:
+    """Route this plan through the staged FFT?  On CUDA for every
+    :func:`plan_ok` plan; on the CPU never (tests force it by patching
+    this function)."""
+    return plan_ok(nfft) and torch.device(device).type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# host-side tables (float64 numpy, stored as float32 planes)
+
+
+def _f32(m):
+    return m.real.astype(np.float32), m.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(nfft: int, inverse: bool):
+    """``(wa, wb, wc, t1, t2)`` as (re, im) float32 pairs: the A-, B- and
+    C-point DFT matrices, the stage-1 twiddle ``[A, B·C]`` and ``T2``
+    ``[B, C]``.  Sign -1 forward, +1 inverse."""
+    C = nfft // (A * B)
+    sign = 2.0 if inverse else -2.0
+    wa = np.exp(sign * 1j * np.pi * np.outer(np.arange(A), np.arange(A)) / A)
+    wb = np.exp(sign * 1j * np.pi * np.outer(np.arange(B), np.arange(B)) / B)
+    wc = np.exp(sign * 1j * np.pi * np.outer(np.arange(C), np.arange(C)) / C)
+    t1 = np.exp(sign * 1j * np.pi * np.arange(A)[:, None]
+                * np.arange(B * C)[None, :] / nfft)
+    t2 = np.exp(sign * 1j * np.pi * np.outer(np.arange(B), np.arange(C))
+                / (B * C))
+    return tuple(map(_f32, (wa, wb, wc, t1, t2)))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_params(nfft: int) -> list:
+    """The plan's runtime tables, ``[t1r, t1i, t2r, t2i]`` forward then
+    inverse (``fft_pallas.plan_params``' order), as float32 numpy arrays."""
+    out = []
+    for inverse in (False, True):
+        _, _, _, t1, t2 = _tables(nfft, inverse)
+        out += [t1[0], t1[1], t2[0], t2[1]]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(nfft: int, device: torch.device) -> tuple:
+    """:func:`plan_params` on ``device``, one copy per (nfft, device)."""
+    return tuple(torch.from_numpy(t).to(device) for t in plan_params(nfft))
+
+
+def _tabs(tables, inverse):
+    off = 4 if inverse else 0
+    return tables[off:off + 4]
+
+
+def _c1(nfft: int) -> int:
+    """C sub-factor: 128 when C >= 128, else C (a direct C-point DFT)."""
+    return min(nfft // (A * B), C1)
+
+
+@functools.lru_cache(maxsize=None)
+def _ctab(nfft: int, inverse: bool):
+    """Composite C-stage tables: ``W_c1`` (the c1-point DFT), the chunk
+    twiddle ``ct[k2', j] = W_C^(j·k2')`` [C2, c1], and the radix-C2
+    butterfly ``wm[c2, k2'] = W_C2^(c2·k2')`` (complex128)."""
+    C = nfft // (A * B)
+    c1 = _c1(nfft)
+    C2 = C // c1
+    sign = 2.0 if inverse else -2.0
+    w1 = np.exp(sign * 1j * np.pi * np.outer(np.arange(c1), np.arange(c1)) / c1)
+    ct = np.exp(sign * 1j * np.pi * np.outer(np.arange(C2), np.arange(c1)) / C)
+    wm = np.exp(sign * 1j * np.pi * np.outer(np.arange(C2), np.arange(C2)) / C2)
+    return _f32(w1), _f32(ct), wm
+
+
+@functools.lru_cache(maxsize=None)
+def _perm(nfft: int) -> np.ndarray:
+    """k at stored position (a', b', p): ``k = a' + A·b' + A·B·kc(p)``
+    with ``kc(p) = p // c1 + C2·(p % c1)``."""
+    C = nfft // (A * B)
+    c1 = _c1(nfft)
+    C2 = C // c1
+    a = np.arange(A)[:, None, None]
+    b = np.arange(B)[None, :, None]
+    p = np.arange(C)[None, None, :]
+    kc = p // c1 + C2 * (p % c1)
+    return (a + A * b + A * B * kc).ravel()
+
+
+def permute_full_response(H_half: np.ndarray, nfft: int) -> np.ndarray:
+    """Half-spectrum response ([nfft//2+1], complex or real) → the full
+    conjugate-symmetric spectrum in permuted storage order, float32
+    [2, nfft] (re, im)."""
+    H_half = np.asarray(H_half, np.complex128)
+    full = np.empty(nfft, np.complex128)
+    full[: nfft // 2 + 1] = H_half
+    full[nfft // 2 + 1:] = np.conj(H_half[1: nfft // 2][::-1])
+    fp = full[_perm(nfft)]
+    return np.stack([fp.real, fp.imag]).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (complex64, f32 arithmetic)
+
+
+def _cmat(pair, device) -> torch.Tensor:
+    return torch.complex(torch.from_numpy(pair[0]),
+                         torch.from_numpy(pair[1])).to(device)
+
+
+def _cplx(re, im) -> torch.Tensor:
+    return torch.complex(re, torch.zeros_like(re) if im is None else im)
+
+
+def _padded(x: torch.Tensor, nfft: int) -> torch.Tensor:
+    n = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, nfft - n)) if n < nfft else x
+
+
+def stage_a_plain(xr, xi, nfft: int, inverse: bool, tables,
+                  real_in: bool = False, real_out: bool = False):
+    """Plain stage A over rows ``[R, n]`` (``n <= nfft``, zeros beyond):
+    forward ``(W_A @ x) · t1``, inverse ``W_A^H @ (x · t1^*) / nfft``.
+    ``real_in``: ``xi`` is zero (None); ``real_out``: only the real plane
+    is returned (``(yr, None)``)."""
+    R = xr.shape[0]
+    S = nfft // A
+    wa = _cmat(_tables(nfft, inverse)[0], xr.device)
+    t1r, t1i = _tabs(tables, inverse)[:2]
+    t1 = torch.complex(t1r, t1i).reshape(A, S)
+    x = _cplx(_padded(xr, nfft),
+              None if real_in else _padded(xi, nfft)).reshape(R, A, S)
+    if inverse:
+        x = x * t1
+    y = torch.matmul(wa, x)
+    if inverse:
+        y = y * (1.0 / nfft)
+    else:
+        y = y * t1
+    y = y.reshape(R, nfft)
+    if real_out:
+        return y.real.contiguous(), None
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def _cstage_fwd(y: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Composite forward C-DFT along the last axis (natural order in,
+    permuted order out): radix-C2 butterfly, chunk twiddle, c1-point DFT."""
+    w1, ct, wm = _ctab(nfft, False)
+    C2 = wm.shape[0]
+    c1 = w1[0].shape[0]
+    dev = y.device
+    z = y.reshape(y.shape[:-1] + (C2, c1))
+    wm_t = torch.from_numpy(wm.astype(np.complex64)).to(dev)
+    u = torch.matmul(wm_t.transpose(0, 1), z) * _cmat(ct, dev)
+    return torch.matmul(u, _cmat(w1, dev)).reshape(y.shape)
+
+
+def _cstage_inv(x: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Adjoint of :func:`_cstage_fwd` (permuted in, natural order out)."""
+    w1, ct, wm = _ctab(nfft, True)
+    C2 = wm.shape[0]
+    c1 = w1[0].shape[0]
+    dev = x.device
+    v = torch.matmul(x.reshape(x.shape[:-1] + (C2, c1)), _cmat(w1, dev))
+    v = v * _cmat(ct, dev)
+    wm_t = torch.from_numpy(wm.astype(np.complex64)).to(dev)
+    return torch.matmul(wm_t, v).reshape(x.shape)
+
+
+def bccb_multi_plain(xr, xi, resps, nfft: int, tables):
+    """Plain fused forward B+C → K responses → inverse C+B: stage-A output
+    ``[R, nfft]`` planes and ``resps`` [K, 2, nfft] (permuted) → ``[K·R,
+    nfft]`` planes for the final inverse stage A."""
+    C = nfft // (A * B)
+    R = xr.shape[0]
+    K = resps.shape[0]
+    dev = xr.device
+    t2 = torch.complex(*_tabs(tables, False)[2:4]).reshape(B, C)
+    it2 = torch.complex(*_tabs(tables, True)[2:4]).reshape(B, C)
+    x = torch.complex(xr, xi).reshape(R, A, B, C)
+    y = torch.matmul(_cmat(_tables(nfft, False)[1], dev), x) * t2
+    y = _cstage_fwd(y, nfft)
+    h = torch.complex(resps[:, 0], resps[:, 1]).reshape(K, 1, A, B, C)
+    z = _cstage_inv(y[None] * h, nfft) * it2
+    z = torch.matmul(_cmat(_tables(nfft, True)[1], dev), z)
+    z = z.reshape(K * R, nfft)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def inv_join_plain(Yr, Yi, K: int, nfft: int, tables):
+    """Plain packed inverse stage A over K response planes of R2 rows:
+    ``[K·R2, nfft]`` planes → one ``[K, 2·R2, nfft]`` (real rows, then
+    imaginary rows, per response)."""
+    R2 = Yr.shape[0] // K
+    yr, yi = stage_a_plain(Yr, Yi, nfft, True, tables)
+    return torch.stack([yr.reshape(K, R2, nfft), yi.reshape(K, R2, nfft)],
+                       dim=1).reshape(K, 2 * R2, nfft)
+
+
+def reduce_packed_plain(Yr, Yi, K: int, R2: int, nfft: int, band_fns,
+                        tables):
+    """Plain packed reduce: inverse stage A of K spectra, ``band_fns[k]`` on
+    each plane of band k, band sum per plane → ``[2·R2, nfft]``."""
+    yr, yi = stage_a_plain(Yr, Yi, nfft, True, tables)
+    yr = yr.reshape(K, R2, nfft)
+    yi = yi.reshape(K, R2, nfft)
+    acc_r = sum(band_fns[k](yr[k]) for k in range(K))
+    acc_i = sum(band_fns[k](yi[k]) for k in range(K))
+    return torch.cat([acc_r, acc_i], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+
+
+def _check(name: str, t: torch.Tensor, shape=None, rows_only=False):
+    if not (t.is_cuda and t.dtype == torch.float32):
+        raise ValueError(f"{name}: need CUDA float32 tensors")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    ok = t.stride(-1) == 1 if rows_only else t.is_contiguous()
+    if not ok:
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_tables(name, tables, nfft, inverse, dev):
+    t1r, t1i, t2r, t2i = _tabs(tables, inverse)
+    C = nfft // (A * B)
+    for t, shape in ((t1r, (A, B * C)), (t1i, (A, B * C)), (t2r, (B, C)),
+                     (t2i, (B, C))):
+        _check(name, t, shape)
+        if t.device != dev:
+            raise ValueError(f"{name}: plan tables on {t.device}, data on "
+                             f"{dev}")
+    return t1r, t1i, t2r, t2i
+
+
+def stage_a_cuda(xr, xi, nfft: int, inverse: bool, tables,
+                 real_in: bool = False, real_out: bool = False):
+    """Launch the stage-A kernel (replaces ``fft_pallas._stage_a``) on rows
+    ``xr``/``xi`` f32 [R, n] (``n <= nfft``, unit stride along a row; the
+    kernel reads zeros past ``n``).  ``xi`` is ignored with ``real_in``."""
+    from . import _cuda
+
+    if not plan_ok(nfft):
+        raise ValueError(f"stage_a_cuda: no plan for nfft={nfft}")
+    if real_in and inverse or real_out and not inverse:
+        raise ValueError("stage_a_cuda: real_in is forward-only, real_out "
+                         "inverse-only")
+    _check("stage_a_cuda", xr, rows_only=True)
+    if xr.ndim != 2 or xr.shape[1] > nfft:
+        raise ValueError(f"stage_a_cuda: rows {tuple(xr.shape)} for nfft "
+                         f"{nfft}")
+    R, n = xr.shape
+    if real_in:
+        xi = xr
+    else:
+        _check("stage_a_cuda", xi, shape=xr.shape, rows_only=True)
+        if xi.stride(0) != xr.stride(0):
+            raise ValueError("stage_a_cuda: xr and xi need one row stride")
+    t1r, t1i, _, _ = _check_tables("stage_a_cuda", tables, nfft, inverse,
+                                   xr.device)
+    out_r = torch.empty((R, nfft), dtype=torch.float32, device=xr.device)
+    out_i = out_r if real_out else torch.empty_like(out_r)
+    scale = 1.0 / nfft if inverse else 1.0
+    _cuda.launch("amw_fft_stage_a", xr, xi, t1r, t1i, out_r, out_i, R,
+                 xr.stride(0), n, nfft // A, int(inverse), int(real_in),
+                 int(real_out), scale)
+    stage_a_cuda.launches += 1
+    return out_r, (None if real_out else out_i)
+
+
+stage_a_cuda.launches = 0
+
+
+def inv_join_cuda(Yr, Yi, K: int, nfft: int, tables):
+    """Launch the packed inverse stage-A join kernel (replaces
+    ``fft_pallas._stage_a_inv_join``): ``[K·R2, nfft]`` planes → one
+    ``[K, 2·R2, nfft]``."""
+    from . import _cuda
+
+    _check("inv_join_cuda", Yr)
+    if Yr.ndim != 2 or Yr.shape[1] != nfft or Yr.shape[0] % K:
+        raise ValueError(f"inv_join_cuda: planes {tuple(Yr.shape)} for K={K}"
+                         f", nfft={nfft}")
+    _check("inv_join_cuda", Yi, shape=Yr.shape)
+    t1r, t1i, _, _ = _check_tables("inv_join_cuda", tables, nfft, True,
+                                   Yr.device)
+    R2 = Yr.shape[0] // K
+    out = torch.empty((K, 2 * R2, nfft), dtype=torch.float32,
+                      device=Yr.device)
+    _cuda.launch("amw_fft_inv_join", Yr, Yi, t1r, t1i, out, K * R2, R2,
+                 nfft // A, 1.0 / nfft)
+    inv_join_cuda.launches += 1
+    return out
+
+
+inv_join_cuda.launches = 0
+
+
+def bccb_multi_cuda(xr, xi, resps, nfft: int, tables):
+    """Launch the B → C × K responses → C⁻¹ → B⁻¹ kernels (replaces
+    ``fft_pallas._stage_bccb_multi``).  Three passes through device memory:
+    forward B with T2 into a scratch pair, then per C-row the forward
+    C-DFT, the K products and K inverse C-DFTs, then conj-T2 and inverse B
+    in place on the output."""
+    from . import _cuda
+
+    if not plan_ok(nfft):
+        raise ValueError(f"bccb_multi_cuda: no plan for nfft={nfft}")
+    _check("bccb_multi_cuda", xr)
+    if xr.ndim != 2 or xr.shape[1] != nfft:
+        raise ValueError(f"bccb_multi_cuda: planes {tuple(xr.shape)} for "
+                         f"nfft={nfft}")
+    _check("bccb_multi_cuda", xi, shape=xr.shape)
+    K = resps.shape[0]
+    _check("bccb_multi_cuda", resps, shape=(K, 2, nfft))
+    dev = xr.device
+    if resps.device != dev or xi.device != dev:
+        raise ValueError("bccb_multi_cuda: tensors must share one device")
+    _, _, t2r, t2i = _check_tables("bccb_multi_cuda", tables, nfft, False,
+                                   dev)
+    _, _, it2r, it2i = _check_tables("bccb_multi_cuda", tables, nfft, True,
+                                     dev)
+    R = xr.shape[0]
+    zr = torch.empty_like(xr)
+    zi = torch.empty_like(xi)
+    out_r = torch.empty((K * R, nfft), dtype=torch.float32, device=dev)
+    out_i = torch.empty_like(out_r)
+    _cuda.launch("amw_fft_bccb", xr, xi, resps, t2r, t2i, it2r, it2i, zr, zi,
+                 out_r, out_i, R, nfft // (A * B), K)
+    bccb_multi_cuda.launches += 1
+    return out_r, out_i
+
+
+bccb_multi_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _band_table(rows: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.float32).to(device)
+
+
+def band_table(band_fns, device) -> torch.Tensor:
+    """float32 [K, 8] map parameters for the reduce kernel, from maps that
+    describe themselves (``table_row()``, see ``bands.BandMap``)."""
+    rows = []
+    for f in band_fns:
+        if not hasattr(f, "table_row"):
+            raise TypeError("the reduce kernel applies only band maps with "
+                            f"a parameter row (bands.BandMap), not {f!r}")
+        rows.append(tuple(float(v) for v in f.table_row()))
+    return _band_table(tuple(rows), torch.device(device))
+
+
+def reduce_packed_cuda(Yr, Yi, K: int, R2: int, nfft: int, bands, tables):
+    """Launch the packed reduce kernel (replaces
+    ``fft_pallas._reduce_stage_a_packed``): ``[K·R2, nfft]`` planes and the
+    [K, 8] map table ``bands`` → ``[2·R2, nfft]``."""
+    from . import _cuda
+
+    _check("reduce_packed_cuda", Yr, shape=(K * R2, nfft))
+    _check("reduce_packed_cuda", Yi, shape=(K * R2, nfft))
+    _check("reduce_packed_cuda", bands, shape=(K, 8))
+    t1r, t1i, _, _ = _check_tables("reduce_packed_cuda", tables, nfft, True,
+                                   Yr.device)
+    out = torch.empty((2 * R2, nfft), dtype=torch.float32, device=Yr.device)
+    _cuda.launch("amw_fft_reduce_packed", Yr, Yi, t1r, t1i, bands, out, R2,
+                 K, nfft // A, 1.0 / nfft)
+    reduce_packed_cuda.launches += 1
+    return out
+
+
+reduce_packed_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# stage dispatch (the JAX package's stage names): plain on the CPU, the
+# kernel on CUDA
+
+
+def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for {t.device}")
+    return True
+
+
+def _stage_a(xr, xi, nfft, inverse, tables, real_in=False, real_out=False):
+    if _on_cpu("_stage_a", xr):
+        return stage_a_plain(xr, xi, nfft, inverse, tables, real_in,
+                             real_out)
+    return stage_a_cuda(xr, xi, nfft, inverse, tables, real_in, real_out)
+
+
+def _stage_bccb_multi(xr, xi, resps, nfft, tables):
+    if _on_cpu("_stage_bccb_multi", xr):
+        return bccb_multi_plain(xr, xi, resps, nfft, tables)
+    return bccb_multi_cuda(xr, xi, resps, nfft, tables)
+
+
+def _stage_a_inv_join(Yr, Yi, K, nfft, tables):
+    if _on_cpu("_stage_a_inv_join", Yr):
+        return inv_join_plain(Yr, Yi, K, nfft, tables)
+    return inv_join_cuda(Yr, Yi, K, nfft, tables)
+
+
+def _reduce_stage_a_packed(Yr, Yi, K, R2, nfft, band_fns, tables):
+    if _on_cpu("_reduce_stage_a_packed", Yr):
+        return reduce_packed_plain(Yr, Yi, K, R2, nfft, band_fns, tables)
+    return reduce_packed_cuda(Yr, Yi, K, R2, nfft,
+                              band_table(band_fns, Yr.device), tables)
+
+
+# ---------------------------------------------------------------------------
+# public API
+
+
+def _prep_rows(x: torch.Tensor, nfft: int):
+    """Rows ``[R, min(n, nfft)]`` of ``x`` [..., n], not padded (the stage-A
+    kernel reads zeros past the end)."""
+    lead = tuple(x.shape[:-1])
+    R = int(np.prod(lead)) if lead else 1
+    xr = x.reshape(R, x.shape[-1])
+    if xr.shape[1] > nfft:
+        xr = xr[:, :nfft]
+    return xr, lead, R
+
+
+def _pack_ok(R: int) -> bool:
+    return R >= 2 and R % 2 == 0
+
+
+def _resolve_tables(tables, nfft, device):
+    return _device_tables(nfft, torch.device(device)) if tables is None \
+        else tables
+
+
+def roundtrip_multi(x, resps_perm, nfft: int, n_out: int, tables=None):
+    """``[irfft(rfft(x, nfft) · H_k)[..., :n_out] for k]``: real [..., n] ×
+    [K, 2, nfft] permuted responses (:func:`permute_full_response`) → real
+    [K, ..., n_out].
+
+    Even row counts ride two real rows as one complex row (first half of
+    the rows on the real plane, second half on the imaginary plane): every
+    response here has a real impulse, so the two convolutions separate
+    after the inverse.  Odd row counts run unpacked."""
+    tables = _resolve_tables(tables, nfft, x.device)
+    xr, lead, R = _prep_rows(x, nfft)
+    K = resps_perm.shape[0]
+    if _pack_ok(R):
+        R2 = R // 2
+        Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
+        Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+        out = _stage_a_inv_join(Yr, Yi, K, nfft, tables)
+        return out[..., :n_out].reshape((K,) + lead + (n_out,))
+    Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
+    Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+    Yr, _ = _stage_a(Yr, Yi, nfft, True, tables, real_out=True)
+    return Yr[:, :n_out].reshape((K,) + lead + (n_out,))
+
+
+def roundtrip_multi_reduce(x, resps_perm, nfft: int, n_out: int, band_fns,
+                           tables=None):
+    """:func:`roundtrip_multi` with ``band_fns[k]`` (memoryless, per sample)
+    applied to band k and the bands summed inside the final inverse stage:
+    real [..., n] → real [..., n_out].  On CUDA the maps must be
+    ``bands.BandMap``s (the kernel reads their parameter rows)."""
+    tables = _resolve_tables(tables, nfft, x.device)
+    xr, lead, R = _prep_rows(x, nfft)
+    K = resps_perm.shape[0]
+    if _pack_ok(R):
+        R2 = R // 2
+        Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
+        Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+        out = _reduce_stage_a_packed(Yr, Yi, K, R2, nfft, band_fns, tables)
+        return out[:, :n_out].reshape(lead + (n_out,))
+    if x.is_cuda:
+        raise NotImplementedError(
+            f"roundtrip_multi_reduce over {R} rows (odd): the unpacked reduce "
+            "kernel fft_pallas._reduce_stage_a has no Hopper port yet "
+            "(ROADMAP.md, 'TPU kernels to port', kernel 12)")
+    ys = roundtrip_multi(x, resps_perm, nfft, n_out, tables)
+    return sum(band_fns[k](ys[k]) for k in range(K))
+
+
+# ---------------------------------------------------------------------------
+# fused sites (``fused`` and the hybrid band split in ``bands``)
+
+
+def site_plan(n: int, device) -> tuple[int, bool]:
+    """``(nfft, staged)`` for a fused site of at least ``n`` points: the TPU
+    plan (``design.tpu_fft_plan``) on the staged FFT where :func:`enabled`
+    takes it, else the CPU rule's size (``design.fft_plan``) on
+    ``torch.fft``."""
+    plan = design.tpu_fft_plan(n)
+    if enabled(plan, device):
+        return plan, True
+    return design.fft_plan(n, device), False
+
+
+def site_params(responses, nfft: int, *rest) -> list:
+    """A fused site's params on the staged route, in the JAX package's
+    nesting: the half-spectrum ``responses`` permuted ``[K, 2, nfft]``,
+    then ``rest``, then the plan tables."""
+    return [np.stack([permute_full_response(h, nfft) for h in responses]),
+            *rest, plan_params(nfft)]
+
+
+def site_roundtrip(x, params, nfft: int, band_fns=None):
+    """The round trip of :func:`site_params`' responses at full
+    ``nfft`` length: [K, ..., nfft], or with ``band_fns`` the band-mapped
+    sum [..., nfft]."""
+    resps, tables = params[0], params[-1]
+    if band_fns is None:
+        return roundtrip_multi(x, resps, nfft, nfft, tables=tables)
+    return roundtrip_multi_reduce(x, resps, nfft, nfft, band_fns,
+                                  tables=tables)

@@ -14,6 +14,12 @@ Counterpart of ``build_target_then_deesser`` and
 Fast interiors skip the odd extension (only the outer settle+padlen
 samples depend on it, and those are replaced by the spliced exact edge
 windows).  Signals are ``[B, C, N]``; ``n_valid`` is per track.
+
+At plans the staged FFT takes (``fft_staged.site_plan``: on CUDA from
+about 5.8 s at 44.1 kHz) the interior runs through
+``fft_staged.site_roundtrip`` (forward, both responses and the inverse in
+the staged kernels) and the params follow the JAX package's Pallas route
+(``fft_staged.site_params``).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from ..constants import FINAL_TRIM_DB
 from ..spec import GraphSpec
-from . import design, validctx
+from . import design, fft_staged, validctx
 from .eq import (_db, _final_balance_bas, _style_bands, _target_curve_bas,
                  build_final_spectral_balance, build_style_eq,
                  build_target_curve)
@@ -57,7 +63,7 @@ def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
     L, w = _edge_windows(settle_t + settle_b, padlen, spec.n)
     if 2 * w + 16 >= spec.n:
         return None
-    nfft = design.fft_plan(
+    nfft, staged = fft_staged.site_plan(
         spec.n + 2 * padlen + 3 * (settle_t + settle_b) + 16, device)
 
     Rt = (design.zero_phase_power([hp], nfft)
@@ -75,19 +81,28 @@ def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
     k = max(3, int(spec.sr * 0.0015))
     if k % 2 == 0:
         k += 1
-    params = [np.stack([Rt, Rtb]).astype(np.float32), list(p_t),
-              list(band_zp.params)]
+    if staged:
+        params = fft_staged.site_params([Rt, Rtb], nfft, list(p_t),
+                                        list(band_zp.params))
+    else:
+        params = [np.stack([Rt, Rtb]).astype(np.float32), list(p_t),
+                  list(band_zp.params)]
     n = spec.n
 
     def fn(x, params):
-        R2, pt, pb = params
+        R2, pt, pb = params[:3]
         nv = validctx.n_valid()
         xr = validctx.right_window(x, w, nv)
         with validctx.cleared():
-            X = torch.fft.rfft(x, n=nfft, dim=-1)
-            # one batched irfft over both responses
-            Rb = R2.reshape((2,) + (1,) * (X.ndim - 1) + (R2.shape[-1],))
-            ys = torch.fft.irfft(X[None] * Rb, n=nfft, dim=-1)[..., :n]
+            if staged:
+                # full nfft-length outputs: the splice slices to n
+                ys = fft_staged.site_roundtrip(x, params, nfft)
+            else:
+                X = torch.fft.rfft(x, n=nfft, dim=-1)
+                # one batched irfft over both responses
+                Rb = R2.reshape((2,) + (1,) * (X.ndim - 1)
+                                + (R2.shape[-1],))
+                ys = torch.fft.irfft(X[None] * Rb, n=nfft, dim=-1)[..., :n]
             y3_f, sc_f = ys[0], ys[1]
             # exact edges: target on raw windows, band on the exact target
             # output
@@ -122,11 +137,10 @@ def build_normalize_then_final(spec: GraphSpec, target_lufs: float = -14.0,
         return None
 
     settle_k = k_weight_settle(spec.sr)
-    nfft = design.fft_plan(
+    nfft, staged = fft_staged.site_plan(
         spec.n + max(2 * padlen + 3 * settle_e + 16, settle_k), device)
     plan = plan_blocks(spec.sr, spec.n)
-    Hk = pack_complex(design.cascade_response(design.k_weighting_ba(spec.sr),
-                                              nfft))
+    Hk_c = design.cascade_response(design.k_weighting_ba(spec.sr), nfft)
 
     R = np.ones(nfft // 2 + 1, np.float64)
     for ba, g in zip(bas_fb, gains_fb):
@@ -149,17 +163,28 @@ def build_normalize_then_final(spec: GraphSpec, target_lufs: float = -14.0,
         f_small, p_small = f_fb, list(p_fb)
         fused_ids = "normalize_lufs+final_spectral_balance"
 
-    params = [Hk, np.float32(target_lufs), R.astype(np.float32), p_small]
+    if staged:
+        params = fft_staged.site_params([Hk_c, R], nfft,
+                                        np.float32(target_lufs), p_small)
+    else:
+        params = [pack_complex(Hk_c), np.float32(target_lufs),
+                  R.astype(np.float32), p_small]
     n = spec.n
 
     def fn(x, params):
-        Hk_d, tgt, R_d, ps = params
         nv = validctx.n_valid()
         xr = validctx.right_window(x, w, nv)
-        X = torch.fft.rfft(x, n=nfft, dim=-1)
-        # one batched irfft over K-weighting + EQ responses
-        Y = torch.stack([X * torch.complex(Hk_d[0], Hk_d[1]), X * R_d])
-        z = torch.fft.irfft(Y, n=nfft, dim=-1)[..., :n]
+        if staged:
+            # full nfft-length outputs: block_energies frames only the
+            # plan's span and the splice slices to n
+            tgt, ps = params[1:3]
+            z = fft_staged.site_roundtrip(x, params, nfft)
+        else:
+            Hk_d, tgt, R_d, ps = params
+            X = torch.fft.rfft(x, n=nfft, dim=-1)
+            # one batched irfft over K-weighting + EQ responses
+            Y = torch.stack([X * torch.complex(Hk_d[0], Hk_d[1]), X * R_d])
+            z = torch.fft.irfft(Y, n=nfft, dim=-1)[..., :n]
         # Causal K-weighting ringout past the valid end must not leak into
         # the truncated-tail gating blocks.
         yk = validctx.mask_tail(z[0], nv)

@@ -14,7 +14,9 @@ recurrence's fixed point, which reproduces ``env[0] = v[0]``.
 :func:`env_gain` (the de-esser's envelope → gain) runs the CUDA kernel
 ``csrc/env_gain.cu`` on a GPU tensor and its plain PyTorch version
 (:func:`env_gain_plain`) on a CPU tensor.  :func:`envelope_follower` is the
-plain chunked envelope (no kernel on this slice's path).
+plain chunked envelope for CPU tensors; on a CUDA tensor it raises until its
+kernels are ported (ROADMAP.md, 'TPU kernels to port': the envelope mode of
+``_win_scan_pallas`` and ``_env_pallas``).
 """
 
 from __future__ import annotations
@@ -169,8 +171,18 @@ def env_gain(x2, nv_rows, W, C, K, attack, release, thresh, ratio, floor):
 def envelope_follower(v: torch.Tensor, attack_coef: float,
                       release_coef: float, *, eps: float = 1e-8):
     """Attack/release envelope of a nonnegative ``v`` ([..., N]), chunked
-    like :func:`env_gain` (plain PyTorch; equal to the reference's
-    sequential follower to ``eps``, chunk 0 exactly)."""
+    like :func:`env_gain` (plain PyTorch, CPU tensors only; equal to the
+    reference's sequential follower to ``eps``, chunk 0 exactly).  The JAX
+    package runs Pallas kernels here, which have no Hopper port yet, so a
+    CUDA tensor raises ``NotImplementedError``."""
+    if v.is_cuda:
+        raise NotImplementedError(
+            "envelope_follower on CUDA: the JAX package's envelope kernels "
+            "(amw_tpu/ops/scan.py _win_scan_pallas in envelope mode, "
+            "_env_pallas) have no Hopper port yet (ROADMAP.md, 'TPU kernels "
+            "to port', kernels 3 and 2'; 'Modules to port', item 4)")
+    if v.device.type != "cpu":
+        raise ValueError(f"envelope_follower: no kernel for {v.device}")
     n = v.shape[-1]
     if n == 0:
         return v

@@ -1,0 +1,129 @@
+"""The staged FFT's CUDA kernels against their plain PyTorch versions.
+
+GPU only (``cuda`` marker; every test skips without a card).  The file
+imports no JAX, so it runs on a machine with the card and no JAX package:
+
+    python -m pytest --noconftest -q tests/test_torch_fft_cuda.py
+
+Bars: relative 3e-6 of the largest magnitude for a stage's output,
+absolute 2e-5 for round trips of unit-variance signals against
+``torch.fft`` (cuFFT), relative 1e-5 for the reduce with its band maps —
+the JAX suite's bars for its Pallas FFT (tests/test_fft_pallas.py).  The
+kernels run radix-2 f32 transforms, the plain versions f32 complex matmuls
+(TF32 off): both f32-accurate, summed in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from amw_tpu_torch.ops import fft_staged as tfs
+from amw_tpu_torch.ops.bands import BandMap
+
+REL_STAGE = 3e-6
+ABS_RT = 2e-5
+REL_REDUCE = 1e-5
+BANDS = [(-7.2, 1.0, 6.0, 12.0, -7.2, 1.5), (-18.5, 2.2, 6.0, 12.0, -18.5, 1.8),
+         (-17.0, 0.6, 6.0, 12.0, -17.0, 1.65), (-15.0, 1.35, 0.2, 12.0, -15.0, 1.2)]
+ALL_SIZES = [1 << k for k in range(19, 25)]  # every plan_ok size, C 32..1024
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _planes(shape, seed, scale=1.0):
+    g = np.random.default_rng(seed)
+    return [torch.from_numpy((scale * g.standard_normal(shape)).astype(
+        np.float32)) for _ in range(2)]
+
+
+def _resps(nfft, K, seed):
+    g = np.random.default_rng(seed)
+    H = [g.random(nfft // 2 + 1) + 0.25 for _ in range(K)]
+    return H, torch.from_numpy(
+        np.stack([tfs.permute_full_response(h, nfft) for h in H]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+def test_stage_a_and_join_cuda_match_plain(cuda_device, nfft):
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    n = nfft - 777
+    xr, xi = (p.to(dev) for p in _planes((4, n), 11))
+    for inverse, real_in, real_out in ((False, False, False),
+                                       (False, True, False),
+                                       (True, False, True),
+                                       (True, False, False)):
+        a = xr if not inverse else torch.nn.functional.pad(xr, (0, 777))
+        b = xi if not inverse else torch.nn.functional.pad(xi, (0, 777))
+        before = tfs.stage_a_cuda.launches
+        got = tfs._stage_a(a, b, nfft, inverse, tabs, real_in, real_out)
+        torch.cuda.synchronize()
+        assert tfs.stage_a_cuda.launches == before + 1
+        want = tfs.stage_a_plain(a, b, nfft, inverse, tabs, real_in, real_out)
+        for g, w in zip(got, want):
+            if w is not None:
+                assert _rel(g, w) < REL_STAGE
+    yr = torch.nn.functional.pad(xr, (0, 777))
+    yi = torch.nn.functional.pad(xi, (0, 777))
+    got = tfs._stage_a_inv_join(yr, yi, 2, nfft, tabs)
+    want = tfs.inv_join_plain(yr, yi, 2, nfft, tabs)
+    assert _rel(got, want) < REL_STAGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+def test_bccb_and_reduce_cuda_match_plain(cuda_device, nfft):
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    xr, xi = (p.to(dev) for p in _planes((2, nfft), 12, 0.3))
+    resps = _resps(nfft, 4, 13)[1].to(dev)
+    for K in (2, 4):
+        before = tfs.bccb_multi_cuda.launches
+        gr, gi = tfs._stage_bccb_multi(xr, xi, resps[:K], nfft, tabs)
+        torch.cuda.synchronize()
+        assert tfs.bccb_multi_cuda.launches == before + 1
+        wr, wi = tfs.bccb_multi_plain(xr, xi, resps[:K], nfft, tabs)
+        assert _rel(gr, wr) < REL_STAGE
+        assert _rel(gi, wi) < REL_STAGE
+    maps = [BandMap(*b) for b in BANDS]
+    got = tfs._reduce_stage_a_packed(gr, gi, 4, 2, nfft, maps, tabs)
+    want = tfs.reduce_packed_plain(gr, gi, 4, 2, nfft, maps, tabs)
+    assert _rel(got, want) < REL_REDUCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+@pytest.mark.parametrize("rows", [2, 3])
+def test_roundtrip_multi_cuda_matches_torch_fft(cuda_device, nfft, rows):
+    dev = cuda_device
+    n = nfft - 1234
+    x = _planes((rows, n), 14)[0].to(dev)
+    H, resps = _resps(nfft, 2, 15)
+    ys = tfs.roundtrip_multi(x, resps.to(dev), nfft, n)
+    X = torch.fft.rfft(x, n=nfft, dim=-1)
+    for k in range(2):
+        Hk = torch.from_numpy(H[k].astype(np.float32)).to(dev)
+        want = torch.fft.irfft(X * Hk, n=nfft, dim=-1)[:, :n]
+        assert float((ys[k] - want).abs().max()) < ABS_RT
+
+
+@pytest.mark.cuda
+def test_unpacked_reduce_raises_on_cuda(cuda_device):
+    nfft = 1 << 19
+    x = torch.zeros(3, nfft, device=cuda_device)
+    resps = torch.zeros(4, 2, nfft, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="kernel 12"):
+        tfs.roundtrip_multi_reduce(x, resps, nfft, nfft,
+                                   [BandMap(*b) for b in BANDS])

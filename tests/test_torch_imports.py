@@ -52,6 +52,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch or raise; the plain versions run only
     because a tensor lies on the CPU."""
     from amw_tpu_torch.ops import fdfilter, scan
+    from amw_tpu_torch.ops import fft_staged as fs
 
     x = torch.zeros(2, 100)
     with pytest.raises(ValueError):
@@ -59,3 +60,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         scan.env_gain_cuda(x, torch.full((2,), 100, dtype=torch.int32),
                            0, 100, 1, 0.9, 0.99, 0.5, 3.0, 0.35)
+    nfft = 1 << 19
+    y = torch.zeros(2, nfft)
+    tabs = fs._device_tables(nfft, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        fs.stage_a_cuda(y, y, nfft, False, tabs)
+    with pytest.raises(ValueError):
+        fs.inv_join_cuda(y, y, 1, nfft, tabs)
+    with pytest.raises(ValueError):
+        fs.bccb_multi_cuda(y, y, torch.zeros(1, 2, nfft), nfft, tabs)
+    with pytest.raises(ValueError):
+        fs.reduce_packed_cuda(y, y, 1, 2, nfft, torch.zeros(1, 8), tabs)

@@ -117,3 +117,17 @@ def test_env_gain_cuda_kernel_matches_plain(cuda_device):
     assert tscan.env_gain_cuda.launches == before + 1
     want = tscan.env_gain_plain(x, nv, W, C, K, att, rel, thresh, 3.0, 0.35)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_envelope_follower_raises_on_cuda_tensors():
+    """No hidden fallback: the JAX package runs Pallas kernels here, which
+    have no Hopper port yet, so a CUDA tensor raises instead of taking the
+    plain loop.  (A stand-in object: the check needs no GPU.)"""
+
+    class _CudaTensor:
+        is_cuda = True
+        device = torch.device("cuda")
+        shape = (2, 1000)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tscan.envelope_follower(_CudaTensor(), 0.9, 0.99)
