@@ -1,4 +1,4 @@
-"""Behavioral constants of the v1 mastering chain.
+"""Behavioral constants of the mastering chain and the v2 job.
 
 A copy of the values in ``amw_tpu/constants.py`` that the ported stages
 read (the port imports nothing of the JAX package).  They are the
@@ -42,3 +42,25 @@ MULTIBAND_ATTACK_RELEASE_MS = (
 MAXIMIZER_THRESHOLD_DB = -2.5
 MAXIMIZER_MARGIN_DB = -0.3
 FINAL_TRIM_DB = 0.5
+
+# Spectral denoiser presets: name -> (strength, noise_percentile).
+DENOISE_PRESETS = {
+    "vocal": (0.15, 25.0),
+    "light": (0.20, 22.0),
+    "medium": (0.5, 15.0),
+    "aggressive": (0.75, 10.0),
+    "tape_hiss": (0.25, 22.0),
+    "room_tone": (0.40, 18.0),
+}
+
+# Default 8-band dynamic EQ preset for mastering.
+DYNAMIC_EQ_MASTERING_BANDS = (
+    {"freq":   120, "q": 1.0, "threshold_db": -14, "ratio": 2.0, "attack_ms": 10, "release_ms": 100, "max_cut_db": -4},
+    {"freq":   250, "q": 1.2, "threshold_db": -12, "ratio": 2.5, "attack_ms":  8, "release_ms":  80, "max_cut_db": -5},
+    {"freq":   400, "q": 1.0, "threshold_db": -12, "ratio": 2.0, "attack_ms":  8, "release_ms":  80, "max_cut_db": -4},
+    {"freq":   800, "q": 1.2, "threshold_db": -12, "ratio": 2.0, "attack_ms":  5, "release_ms":  60, "max_cut_db": -4},
+    {"freq":  2500, "q": 1.4, "threshold_db": -12, "ratio": 2.5, "attack_ms":  5, "release_ms":  60, "max_cut_db": -5},
+    {"freq":  5000, "q": 1.4, "threshold_db": -14, "ratio": 3.0, "attack_ms":  3, "release_ms":  50, "max_cut_db": -6},
+    {"freq":  8000, "q": 1.2, "threshold_db": -16, "ratio": 4.0, "attack_ms":  2, "release_ms":  40, "max_cut_db": -8},
+    {"freq": 12000, "q": 0.8, "threshold_db": -18, "ratio": 2.0, "attack_ms":  5, "release_ms":  60, "max_cut_db": -4},
+)

@@ -34,11 +34,14 @@ def to_device(params, device, _seen=None):
 
 
 def params_from_jax(params, device=None):
-    """The port's params from the nested list that
-    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` returns (numpy arrays;
-    on its Pallas route also the device arrays of ``fft_pallas.
-    plan_params``), as tensors on ``device`` (default ``cuda``) in the same
-    nesting."""
+    """The port's params from the nested list that a JAX package graph
+    builder returns (numpy arrays; on its Pallas route also the device
+    arrays of ``fft_pallas.plan_params``), as tensors on ``device``
+    (default ``cuda``) in the same nesting.  Two builders are mirrored:
+    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` (one list per stage)
+    and ``amw_tpu.models.v2_job.build_v2_job_graph`` (one list per stage,
+    the chain's modules among them, then ``[[Hk]]``: the K-weighting
+    response of the before/after loudness meter)."""
     from . import resolve_device
 
     return to_device(params, resolve_device(device))

@@ -2,16 +2,12 @@
 //
 // Replaces the Pallas TPU kernel amw_tpu/ops/scan.py `_win_scan_pallas` in
 // gain mode (take_abs, aux).  Row `row` of x is cut into K chunks of C
-// samples; thread m = row * K + kk runs the attack/release recurrence
-//
-//   env = c * env + (1 - c) * v,   c = attack if v > env else release,
-//
-// over v = |x| at global positions kk*C - W .. kk*C + C - 1: W warm-up
-// steps (positions below 0 read x[0], the recurrence's fixed point, which
-// reproduces env[0] = |x[0]| for chunk 0) then C body steps.  The state
-// starts at the first warm-up value.  W is chosen so that the warm-up
-// forgets the start state to 1e-8, so every chunk equals the exact
-// recurrence.  Each body step writes
+// samples; thread m = row * K + kk runs the attack/release recurrence of
+// env_core.cuh over v = |x| at global positions kk*C - W .. kk*C + C - 1:
+// W warm-up steps (positions below 0 read x[0], the recurrence's fixed
+// point, which reproduces env[0] = |x[0]| for chunk 0) then C body steps.
+// W is chosen so that the warm-up forgets the start state to 1e-8, so every
+// chunk equals the exact recurrence.  Each body step writes
 //
 //   out[row, g] = clip(red(env) / env, floor, 1)   for 0 <= g < n_valid[row]
 //               = 0                                 otherwise,
@@ -29,17 +25,13 @@
 // less.  One thread walks one row here, so loads are not coalesced (each
 // thread streams its own cache lines through L1); staging tiles through
 // shared memory is later work.
-#include <cuda_runtime.h>
+#include "env_core.cuh"
+
+using namespace amw_env;
 
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float env_step(float e, float v, float attack,
-                                          float release) {
-  const float c = v > e ? attack : release;
-  return c * e + (1.0f - c) * v;
-}
 
 __global__ void env_gain_kernel(const float* __restrict__ x,
                                 const int* __restrict__ n_valid,
@@ -54,18 +46,13 @@ __global__ void env_gain_kernel(const float* __restrict__ x,
   const float* xr = x + static_cast<long long>(row) * n;
   float* yr = out + static_cast<long long>(row) * n;
   const int off = kk * C;
-  const int start = off - W;
   const int nv = n_valid[row];
 
-  float e = fabsf(__ldg(xr + max(start, 0)));
-#pragma unroll 4
-  for (int g = start; g < off; ++g) {
-    e = env_step(e, fabsf(__ldg(xr + max(g, 0))), attack, release);
-  }
+  float e = env_warmup<true>(xr, off, W, attack, release);
   const int end = min(off + C, n);
 #pragma unroll 4
   for (int g = off; g < end; ++g) {
-    e = env_step(e, fabsf(__ldg(xr + g)), attack, release);
+    e = env_step(e, env_input<true>(xr + g), attack, release);
     const float red = e > thresh ? thresh + (e - thresh) / ratio : e;
     float gain = e > 1e-10f ? red / (e + 1e-12f) : 1.0f;
     gain = fminf(fmaxf(gain, floor_), 1.0f);

@@ -1,8 +1,12 @@
 // Forward B+C, K responses, inverse C+B of the staged FFT.
 //
-// Replaces the Pallas TPU kernel amw_tpu/ops/fft_pallas.py
+// Replaces two Pallas TPU kernels of amw_tpu/ops/fft_pallas.py:
 // `_stage_bccb_multi` (body `_stage_bccb_multi_kernel`, C stage
-// `_cstage_fwd` / `_cstage_inv`).  Input: stage A's output, two planes
+// `_cstage_fwd` / `_cstage_inv`), entry amw_fft_bccb, and `_stage_bc_cb`
+// (body `_stage_bc_cb_kernel`, the same round trip under one response
+// [2, nfft], the `apply_response` of every zero-phase pass), entry
+// amw_fft_bc_cb: the K = 1 instance of the same three passes.  Input: stage
+// A's output, two planes
 // [R, nfft] viewed [R, 128, 128, C] (a', b, c); responses [K, 2, nfft] in
 // the permuted storage order (k3 = p / c1 + C2 * (p % c1) at position p of a
 // C-row, c1 = min(C, 128), C2 = C / c1).  Output: two planes [K*R, nfft]
@@ -125,22 +129,17 @@ cstage_multi_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   }
 }
 
-}  // namespace
-
 // x*: [R, nfft] stage-A output; resps: [K, 2, nfft]; t2*/it2*: [128, C]
 // forward / inverse T2; z*: [R, nfft] scratch; out*: [K*R, nfft].
-extern "C" int amw_fft_bccb(const float* xr, const float* xi,
-                            const float* resps, const float* t2r,
-                            const float* t2i, const float* it2r,
-                            const float* it2i, float* zr, float* zi,
-                            float* out_r, float* out_i, int R, int C, int K,
-                            void* stream) {
+int run_bccb(const float* xr, const float* xi, const float* resps,
+             const float* t2r, const float* t2i, const float* it2r,
+             const float* it2i, float* zr, float* zi, float* out_r,
+             float* out_i, int R, int C, int K, cudaStream_t st) {
   if (R <= 0 || K <= 0) return 0;
   if (C < kCols || C > kMaxC || (C & (C - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   int logC = 0;
   while ((1 << logC) < C) ++logC;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long bc = static_cast<long long>(kN) * C;
   const long long nfft = kN * bc;
   const int strips = C / kCols;
@@ -162,4 +161,27 @@ extern "C" int amw_fft_bccb(const float* xr, const float* xi,
           out_r, out_i, bc, bc, K * R * kN, C, it2r, it2i, out_r, out_i, 0,
           1.0f);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int amw_fft_bccb(const float* xr, const float* xi,
+                            const float* resps, const float* t2r,
+                            const float* t2i, const float* it2r,
+                            const float* it2i, float* zr, float* zi,
+                            float* out_r, float* out_i, int R, int C, int K,
+                            void* stream) {
+  return run_bccb(xr, xi, resps, t2r, t2i, it2r, it2i, zr, zi, out_r, out_i,
+                  R, C, K, static_cast<cudaStream_t>(stream));
+}
+
+// As amw_fft_bccb with one response resp [2, nfft]; out*: [R, nfft].
+extern "C" int amw_fft_bc_cb(const float* xr, const float* xi,
+                             const float* resp, const float* t2r,
+                             const float* t2i, const float* it2r,
+                             const float* it2i, float* zr, float* zi,
+                             float* out_r, float* out_i, int R, int C,
+                             void* stream) {
+  return run_bccb(xr, xi, resp, t2r, t2i, it2r, it2i, zr, zi, out_r, out_i,
+                  R, C, 1, static_cast<cudaStream_t>(stream));
 }

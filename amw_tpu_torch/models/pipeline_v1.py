@@ -2,11 +2,11 @@
 ``amw_tpu/models/pipeline_v1.py``).
 
 Mirrors ``run_mastering_pipeline`` (backend/app/pipeline.py:1800-1909):
-dc → peak guard → target curve → de-esser → dynamics (4-band + maximizer +
-brickwall) → normalize LUFS → final spectral balance → style EQ → peak
-guard → fade-in → clip/scrub.  The optional stages whose ops are not ported
-yet (denoise, reference match, transient designer, exciter, imager,
-parallel compression) raise ``NotImplementedError``.
+dc → peak guard → target curve → de-esser → dynamics (4-band + maximizer
++ brickwall) → [parallel compression] → normalize LUFS → final spectral
+balance → style EQ → [transient designer] → [exciter] → [imager] → peak
+guard → fade-in → clip/scrub.  The optional stages whose ops are not
+ported yet (denoise, reference match) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,11 +19,14 @@ from ..constants import STYLE_CONFIGS
 from ..convert import to_device
 from ..ops import basic, meters, validctx
 from ..ops.bands import build_dynamics
-from ..ops.dynamics import build_deesser
+from ..ops.dynamics import build_deesser, build_transient_designer
 from ..ops.eq import (build_final_spectral_balance, build_style_eq,
                       build_target_curve)
+from ..ops.exciter import build_harmonic_exciter
 from ..ops.fused import build_normalize_then_final, build_target_then_deesser
+from ..ops.stereo import build_stereo_imager
 from ..spec import GraphSpec
+from .chain import as_batch
 
 _TODO = "ROADMAP.md, 'Modules to port', item 7 (the rest of the op set)"
 
@@ -56,15 +59,9 @@ def build_v1_pipeline(
         _not_ported("the spectral denoiser (denoise_strength > 0)")
     if reference_env is not None:
         _not_ported("reference matching (reference_env)")
-    if (abs(transient_attack - 1.0) > 0.02
-            or abs(transient_sustain - 1.0) > 0.02):
-        _not_ported("the transient designer")
-    if cfg.get("parallel_mix", 0.0) > 0.01:
-        _not_ported(f"parallel compression (style {style!r})")
-    if cfg.get("exciter_db", 0.0) > 0.05:
-        _not_ported(f"the harmonic exciter (style {style!r})")
-    if abs(cfg.get("imager_width", 1.0) - 1.0) > 0.01 and spec.channels == 2:
-        _not_ported(f"the stereo imager (style {style!r})")
+    exciter_db = cfg.get("exciter_db", 0.0)
+    imager_width = cfg.get("imager_width", 1.0)
+    parallel_mix = cfg.get("parallel_mix", 0.0)
 
     stages = []  # (name, params, fn)
 
@@ -80,6 +77,9 @@ def build_v1_pipeline(
         add("target_eq", build_target_curve(spec, device=dev))
         add("deesser", build_deesser(spec, device=dev))
     add("dynamics", build_dynamics(spec, compressor=compressor, device=dev))
+    if parallel_mix > 0.01:
+        add("parallel_compress",
+            ([], lambda x, p: basic.parallel_compression(x, mix=parallel_mix)))
     fused_nf = build_normalize_then_final(spec, target_lufs, style, device=dev)
     if fused_nf is not None:
         p_nf, f_nf, nf_id = fused_nf
@@ -92,6 +92,16 @@ def build_v1_pipeline(
         add("final_spectral_balance",
             build_final_spectral_balance(spec, device=dev))
         add("style_eq", build_style_eq(spec, style, device=dev))
+    if (abs(transient_attack - 1.0) > 0.02
+            or abs(transient_sustain - 1.0) > 0.02):
+        add("transient_designer", build_transient_designer(
+            spec, transient_attack, transient_sustain))
+    if exciter_db > 0.05:
+        add("harmonic_exciter",
+            build_harmonic_exciter(spec, exciter_db, device=dev))
+    if abs(imager_width - 1.0) > 0.01 and spec.channels == 2:
+        add("stereo_imager",
+            build_stereo_imager(spec, width=imager_width, device=dev))
     add("peak_guard_out",
         ([], lambda x, p: basic.remove_intersample_peaks(x, 0.5)))
     add("output_fade_in",
@@ -102,14 +112,7 @@ def build_v1_pipeline(
     fns = [s[2] for s in stages]
 
     def fn(x, params, n_valid=None):
-        single = x.ndim == 2
-        xb = x[None] if single else x
-        nv = None
-        if n_valid is not None:
-            nv = torch.as_tensor(n_valid, dtype=torch.int32,
-                                 device=xb.device).reshape(-1)
-            if nv.shape[0] != xb.shape[0]:
-                raise ValueError("n_valid needs one length per track")
+        xb, nv, single = as_batch(x, n_valid)
         with validctx.valid_length(nv):
             for f, p in zip(fns, params):
                 # Keep bucket padding silent between stages.

@@ -1,0 +1,144 @@
+"""The full v2 mastering job (counterpart of ``amw_tpu/models/v2_job.py``):
+PRE pro-modules → chain → POST pro-modules → fade-in, with the
+before/after loudness and the validation stats of every track.
+
+Mirrors ``_run_mastering_job_v2`` (routers/mastering.py:443-637): PRE =
+[rumble_filter] [spectral_denoise] [de-esser]; POST = [transient_designer]
+[parallel_compression] [dynamic_eq]; then the 6 ms output fade-in.  The
+spectral denoiser, the true-peak limiter and vocal isolation are not
+ported: asking for them raises ``NotImplementedError`` naming their
+ROADMAP items.  The JAX graph's progress token (host callbacks per stage)
+has no counterpart here (ROADMAP.md, 'Modules to port', item 8: the
+runtime).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import resolve_device
+from ..constants import DENOISE_PRESETS
+from ..convert import to_device
+from ..ops import basic, fft_staged, meters, validctx
+from ..ops.dynamics import (build_deesser, build_dynamic_eq,
+                            build_transient_designer)
+from ..ops.eq import build_rumble_filter
+from ..spec import GraphSpec
+from .chain import as_batch, build_chain_ops, default_chain_config
+
+
+def resolve_denoise(pro: dict) -> tuple[float, float]:
+    """(strength, noise_percentile) per the reference's preset-else-strength
+    resolution (mastering.py:503-513)."""
+    preset = (pro.get("denoise_preset") or "").strip().lower()
+    if preset in DENOISE_PRESETS:
+        return DENOISE_PRESETS[preset]
+    strength = float(pro.get("denoise_strength", 0) or 0)
+    if strength > 0:
+        return strength, float(pro.get("denoise_noise_percentile", 15.0))
+    return 0.0, 15.0
+
+
+def _not_ported(what: str, item: int, name: str):
+    raise NotImplementedError(
+        f"{what} is not ported to amw_tpu_torch yet (ROADMAP.md, 'Modules "
+        f"to port', item {item}: {name})")
+
+
+def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
+                       pro: dict | None = None, target_lufs: float = -14.0,
+                       style: str = "standard", *, device=None):
+    """Returns ``(params, fn, stage_names)``.  ``params`` is the JAX
+    package's nesting (stage params, then ``[[Hk]]``) as tensors on
+    ``device`` (default ``cuda``); ``fn(x, params, n_valid=None)`` masters
+    ``x`` [C, N] or a bucket-padded batch [B, C, N] (``n_valid`` [B]) and
+    returns ``dict(out, before_lufs, after_lufs, peak, finite)``: the
+    output like ``x`` and, per track, the loudness before and after, the
+    peak and whether every sample is finite ([B], or scalars for one
+    [C, N] track)."""
+    dev = resolve_device(device)
+    pro = pro or {}
+    if pro.get("apply_vocal_isolation"):
+        _not_ported("vocal isolation (apply_vocal_isolation)", 11,
+                    "models/htdemucs_jax.py and models/vocal.py")
+    if resolve_denoise(pro)[0] > 0.01:
+        _not_ported("the spectral denoiser (denoise_preset / "
+                    "denoise_strength)", 7, "spectral.py")
+    if pro.get("true_peak_enabled"):
+        _not_ported("the true-peak limiter (true_peak_enabled)", 7,
+                    "tplimit.py")
+    stages = []
+
+    def add(name, built):
+        stages.append((name, list(built[0]), built[1]))
+
+    if pro.get("rumble_enabled"):
+        add("rumble_filter", build_rumble_filter(
+            spec, float(pro.get("rumble_cutoff", 80.0)), device=dev))
+    if pro.get("deesser_enabled"):
+        add("deesser", build_deesser(
+            spec, threshold_db=float(pro.get("deesser_threshold", -6.0)),
+            freq_hi=float(pro.get("deesser_freq_hi", 9000.0)), device=dev))
+
+    config = chain_config or default_chain_config(target_lufs=target_lufs,
+                                                  style=style)
+    ids, chain_params, chain_fns, _ = build_chain_ops(
+        spec, config, target_lufs=target_lufs, style=style, device=dev)
+    for mid, p, f in zip(ids, chain_params, chain_fns):
+        stages.append((f"chain:{mid}", p, f))
+    # chain.process final clip/NaN scrub (chain.py:93-94)
+    add("chain_finalize", ([], lambda x, p: basic.finalize_clip(x)))
+
+    ta = pro.get("transient_attack")
+    ts = pro.get("transient_sustain", 1.0)
+    if ta is not None and (abs(float(ta) - 1.0) > 0.02
+                           or abs(float(ts) - 1.0) > 0.02):
+        add("transient_designer",
+            build_transient_designer(spec, float(ta), float(ts)))
+    pmix = pro.get("parallel_mix", 0)
+    if pmix is not None and float(pmix) > 0:
+        add("parallel_compression",
+            ([], lambda x, p, _m=float(pmix):
+             basic.parallel_compression(x, mix=_m)))
+    if pro.get("dynamic_eq_enabled"):
+        add("dynamic_eq", build_dynamic_eq(spec, device=dev))
+    add("output_fade_in",
+        ([], lambda x, p: basic.output_edge_fade_in(x, spec.sr, 6.0)))
+
+    # the in-graph loudness meter (before / after)
+    settle = meters.k_weight_settle(spec.sr)
+    nfft = fft_staged.site_plan(spec.n + settle, dev)[0]
+    Hk = meters.k_weight_response(spec.sr, nfft)
+    try:
+        plan = meters.plan_blocks(spec.sr, spec.n)
+    except ValueError:
+        plan = None
+
+    names = [s[0] for s in stages]
+    params = to_device([s[1] for s in stages] + [[Hk]], dev)
+    fns = [s[2] for s in stages]
+
+    def loudness(x, Hk_d, nv):
+        if plan is None:
+            return torch.full((x.shape[0],), -1e9, dtype=torch.float32,
+                              device=x.device)
+        return meters.integrated_lufs(x, Hk_d, nfft, plan, n_valid=nv)
+
+    def fn(x, params, n_valid=None):
+        xb, nv, single = as_batch(x, n_valid)
+        Hk_d = params[-1][0]
+        before = loudness(xb, Hk_d, nv)
+        y = xb
+        with validctx.valid_length(nv):
+            for f, p in zip(fns, params[:-1]):
+                # keep the bucket padding silent between stages
+                y = validctx.mask_tail(f(y, p))
+        after = loudness(y, Hk_d, nv)
+        finite, peak = basic.validate_stats(y)
+        res = {"out": y, "before_lufs": before, "after_lufs": after,
+               "peak": peak, "finite": finite}
+        if single:
+            res = {k: v[0] for k, v in res.items()}
+        return res
+
+    return params, fn, names

@@ -38,10 +38,14 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _ENTRIES = {
     "amw_box_smooth": ("box_smooth", "ppiii"),
     "amw_env_gain": ("env_gain", "pppiiiiifffff"),
+    "amw_env_scan": ("env_scan", "ppiiiiiff"),
+    "amw_env_rows": ("env_scan", "ppiiff"),
     "amw_fft_stage_a": ("fft_stage_a", "ppppppiiiiiiif"),
     "amw_fft_inv_join": ("fft_stage_a", "pppppiiif"),
     "amw_fft_bccb": ("fft_bccb", "pppppppppppiii"),
+    "amw_fft_bc_cb": ("fft_bccb", "pppppppppppii"),
     "amw_fft_reduce_packed": ("fft_reduce", "ppppppiiif"),
+    "amw_fft_reduce": ("fft_reduce", "ppppppiiif"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -4,7 +4,7 @@ maximizer, brickwall limiter.
 Counterpart of ``amw_tpu/ops/bands.py`` with the ``soft_knee`` compressor
 (the reference's scipy fallback, pipeline.py:282-330, the v1 default).
 The ``envelope`` compressor is not ported yet (ROADMAP.md, 'Modules to
-port', item 4).
+port', item 5).
 
 Reference: backend/app/pipeline.py:333-481 (4-band Butterworth-2 filtfilt
 split, ``apply_multiband_dynamics``) and :610-641 (``apply_dynamics`` =
@@ -156,7 +156,8 @@ def band_split_plan(spec: GraphSpec, crossovers_hz=None, pre=None,
     if spec.exact:
         return build_twopass(spec)
 
-    nfft = design.fft_plan(spec.n + 2 * padlen + 3 * settle + 16, device)
+    nfft = fft_staged.site_plan(spec.n + 2 * padlen + 3 * settle + 16,
+                                device)[0]
     R_pre = pre.power(nfft) if pre is not None else 1.0
     zps = []
     for chain in stages:
@@ -228,7 +229,7 @@ def build_multiband_dynamics(spec: GraphSpec, knee_db: float = 6.0,
     if compressor != "soft_knee":
         raise NotImplementedError(
             f"compressor={compressor!r}: only 'soft_knee' is ported "
-            "(ROADMAP.md, 'Modules to port', item 4: the envelope "
+            "(ROADMAP.md, 'Modules to port', item 5: the envelope "
             "compressor)")
     ratios_override = (tuple(float(band_ratios[i]) for i in range(4))
                        if band_ratios is not None and len(band_ratios) == 4

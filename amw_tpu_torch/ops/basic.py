@@ -1,4 +1,4 @@
-"""Elementwise / reduction DSP ops of the v1 chain.
+"""Elementwise / reduction DSP ops of the v1 chain and the v2 job.
 
 Counterpart of ``amw_tpu/ops/basic.py``.  Audio is ``[..., N]`` with time
 on the last axis.  The JAX functions run on one track ``[C, N]`` (batched
@@ -9,7 +9,9 @@ track, never across tracks.
 Reference citations: backend/app/pipeline.py — ``remove_dc_offset`` :134,
 ``remove_intersample_peaks`` :141, ``apply_output_edge_fade_in`` :152,
 ``_apply_limiter_numpy`` :276, ``_compress_soft_knee`` :282,
-``apply_maximizer`` :484, finalize clip :1904.
+``apply_maximizer`` :484, ``apply_parallel_compression`` :1771,
+``_exciter_saturate`` :1179, finalize clip :1904,
+``validate_mastered_not_silent`` :939.
 """
 
 from __future__ import annotations
@@ -28,6 +30,18 @@ def _track_max(x: torch.Tensor) -> torch.Tensor:
     """Max over every axis but the leading (track) one, keepdims."""
     return x.reshape(x.shape[0], -1).amax(dim=1).reshape(
         (x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def remove_dc_offset(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel mean subtraction over ``[B, C, N]``.  Under a padded
+    bucket the mean is over each track's valid samples: the stage loop
+    keeps the padding at zero, so the sum covers only the valid region and
+    is divided by ``n_valid``."""
+    nv = validctx.n_valid()
+    if nv is None:
+        return x - x.mean(dim=-1, keepdim=True)
+    denom = validctx.per_track(nv.clamp(min=1), x).to(x.dtype)
+    return x - x.sum(dim=-1, keepdim=True) / denom
 
 
 def remove_intersample_peaks(x: torch.Tensor,
@@ -167,7 +181,45 @@ def maximizer(x: torch.Tensor) -> torch.Tensor:
     return sign * out_abs.clamp(max=ceiling)
 
 
+def parallel_compression(x: torch.Tensor, mix: float = 0.3,
+                         ratio: float = 8.0,
+                         threshold_db: float = -20.0) -> torch.Tensor:
+    """New York compression: blend of hard-compressed signal with the dry."""
+    mix = float(min(max(mix, 0.0), 1.0))
+    if mix < 0.01:
+        return x
+    compressed = compress_soft_knee(x, threshold_db=threshold_db, ratio=ratio,
+                                    knee_db=6.0, max_upward_boost_db=0.0)
+    return (x * (1.0 - mix) + compressed * mix).clamp(-1.0, 1.0)
+
+
+def exciter_saturate(x: torch.Tensor, mode: str,
+                     k: float = 2.0) -> torch.Tensor:
+    """Waveshaper curves (pipeline.py:1179-1197)."""
+    x = x.clamp(-1.0, 1.0)
+    if mode == "transistor":
+        return x - (x ** 3) / 3.0
+    if mode == "tape":
+        return torch.tanh(k * x) / (k + 1e-8)
+    if mode == "tube":
+        return x + 0.3 * (x ** 2)
+    if mode == "warm":
+        return 0.5 * (torch.tanh(k * x) / (k + 1e-8) + x + 0.3 * (x ** 2))
+    if mode == "digital":
+        return torch.where(x.abs() <= 1.0, x,
+                           torch.sign(x) * (2.0 - x.abs()))
+    return torch.tanh(k * x) / (k + 1e-8)
+
+
 def finalize_clip(x: torch.Tensor) -> torch.Tensor:
     """End-of-chain scrub: clip to [-1, 1] and replace NaN/Inf."""
     x = x.clamp(-1.0, 1.0)
     return torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=-1.0)
+
+
+def validate_stats(x: torch.Tensor):
+    """Device-side stats backing ``validate_mastered_not_silent``
+    (pipeline.py:939-962), per track of ``[B, ...]``: (all finite [B],
+    peak [B])."""
+    flat = x.reshape(x.shape[0], -1)
+    return torch.isfinite(flat).all(dim=1), flat.abs().amax(dim=1)

@@ -8,18 +8,12 @@ device side (:mod:`amw_tpu_torch.ops.fdfilter`) only does rFFT → multiply
 
 The FFT size rule is the JAX package's CPU rule (:func:`next_fft_size`,
 no TPU preference), so the port and the JAX package on the CPU pick the
-same ``nfft``.  Two exceptions follow the JAX package on a TPU
-(:func:`tpu_fft_plan`, which prefers a power of two the staged FFT takes,
-:func:`plan_ok`):
-
-- the three fused sites of the v1 chain (``fused`` and the hybrid band
-  split in ``bands``) plan with ``fft_staged.site_plan``, which takes the
-  TPU plan and the staged FFT (CUDA kernels) on CUDA, and on the CPU when
-  a test forces that route;
-- every other full-length FFT builder goes through :func:`fft_plan` /
-  :func:`check_fft_plan`, which refuse on CUDA a plan that the JAX package
-  runs through its Pallas ``apply_response`` kernel on a TPU: that kernel
-  has no Hopper port yet.
+same ``nfft``.  :func:`tpu_fft_plan` is the JAX package's rule on a TPU: a
+power of two the staged FFT takes (:func:`plan_ok`) replaces a smaller
+3·2^k or 5·2^k size.  The builders plan with ``fft_staged.site_plan``,
+which takes the TPU plan where the staged FFT runs (on CUDA) and the CPU
+rule elsewhere, as the JAX package's ``next_fft_size`` does on each
+backend.
 """
 
 from __future__ import annotations
@@ -54,6 +48,18 @@ def butter_ba(order: int, lo: float, hi: float | None, btype: str, sr: float):
         b, a = signal.butter(order, wn, btype=btype, output="ba")
     else:
         b, a = signal.butter(order, [lo / nyq, hi / nyq], btype=btype, output="ba")
+    return np.asarray(b, np.float64), np.asarray(a, np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def iirpeak_ba(w0: float, bw: float):
+    """Peaking (bell) filter like ``scipy.signal.iirpeak(w0, Q)`` with the
+    bandwidth parameterization of the reference dynamic EQ
+    (pipeline.py:1660-1663 passes the *bandwidth* as the second positional
+    argument, i.e. Q := bw there)."""
+    from scipy import signal
+
+    b, a = signal.iirpeak(w0, bw)
     return np.asarray(b, np.float64), np.asarray(a, np.float64)
 
 
@@ -122,6 +128,16 @@ def settle_len(*ba_pairs, eps: float = SETTLE_EPS) -> int:
     return int(np.clip(n, 8, SETTLE_CAP))
 
 
+@functools.lru_cache(maxsize=2)
+def _rfft_zinv(nfft: int) -> np.ndarray:
+    """``e^{-jw_k}`` on the rFFT grid of ``nfft`` (read-only): one chain
+    evaluates dozens of responses at the same plan."""
+    w = 2.0 * np.pi * np.arange(nfft // 2 + 1, dtype=np.float64) / nfft
+    zinv = np.exp(-1j * w)
+    zinv.flags.writeable = False
+    return zinv
+
+
 def freqz(b, a, nfft: int) -> np.ndarray:
     """Complex response of (b, a) on the rFFT grid of an ``nfft``-point FFT.
 
@@ -130,8 +146,7 @@ def freqz(b, a, nfft: int) -> np.ndarray:
     """
     b = np.atleast_1d(np.asarray(b, np.float64))
     a = np.atleast_1d(np.asarray(a, np.float64))
-    w = 2.0 * np.pi * np.arange(nfft // 2 + 1, dtype=np.float64) / nfft
-    zinv = np.exp(-1j * w)
+    zinv = _rfft_zinv(nfft)
     num = np.zeros_like(zinv)
     for coef in b[::-1]:
         num = num * zinv + coef
@@ -192,28 +207,3 @@ def tpu_fft_plan(n: int) -> int:
                 and pow2 <= _PREFER_PALLAS_MAX * best):
             return pow2
     return best
-
-
-def check_fft_plan(n: int, device) -> None:
-    """Raise ``NotImplementedError`` for a standalone FFT pass of at least
-    ``n`` points on CUDA when the JAX package would run it through its
-    Pallas ``apply_response`` (kernel 8, ``_stage_bc_cb``) on a TPU
-    (ROADMAP.md, 'TPU kernels to port').  ``n`` may be the requested length
-    or the CPU rule's size for it: both give the same TPU plan."""
-    import torch
-
-    if torch.device(device).type != "cuda":
-        return
-    plan = tpu_fft_plan(n)
-    if plan_ok(plan):
-        raise NotImplementedError(
-            f"FFT plan {plan} (for {n} points): a standalone pass the JAX "
-            "package runs through its Pallas apply_response kernel "
-            "(amw_tpu/ops/fft_pallas.py _stage_bc_cb) on a TPU, which has no "
-            "Hopper port yet (ROADMAP.md, 'TPU kernels to port', kernel 8)")
-
-
-def fft_plan(n: int, device) -> int:
-    """``next_fft_size(n)`` after the :func:`check_fft_plan` guard."""
-    check_fft_plan(n, device)
-    return next_fft_size(n)

@@ -1,24 +1,29 @@
-"""EQ op builders of the v1 chain: target curve, final balance, style EQ.
+"""EQ op builders: target curve, final balance, style EQ, rumble filter.
 
-Counterpart of ``amw_tpu/ops/eq.py`` (minimum-phase target curve, final
-spectral balance, style EQ; the linear-phase target curve, rumble filter
-and high-frequency trim are not on the v1 ``standard`` path and are not
-ported).  Each ``build_*`` returns ``(params, fn)``: ``params`` is a nested
-list of float32 numpy arrays (the op's "weights") and ``fn(x, params)``
-applies the op to ``[..., N]`` with the tensor version of that list.
+Counterpart of ``amw_tpu/ops/eq.py``: the minimum-phase target curve
+(optionally on Mid/Side), final spectral balance, style EQ, their fusion
+``build_final_balance_then_style``, and the rumble filter.  The
+linear-phase target curve raises ``NotImplementedError`` (ROADMAP.md,
+'Modules to port', item 6); the high-frequency trim is on no ported path.
+Each ``build_*`` returns ``(params, fn)``: ``params`` is a nested list of
+float32 numpy arrays (the op's "weights") and ``fn(x, params)`` applies the
+op to ``[..., N]`` with the tensor version of that list.
 
 Reference semantics: backend/app/pipeline.py:170-273 (target curve),
-:576-607 (final spectral balance), :1401-1434 (style EQ).
+:576-607 (final spectral balance), :1401-1434 (style EQ), :1449-1469
+(rumble filter).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..constants import FINAL_TRIM_DB, STYLE_CONFIGS
 from ..spec import GraphSpec
-from . import design
+from . import design, fft_staged
 from .zphase import hybridize_op, make_zp, make_zp_from_power, scipy_padlen
 
 
@@ -52,9 +57,24 @@ def _target_curve_bas(spec: GraphSpec):
     return (b_hp, a_hp), (b_lp, a_lp), (b_pr, a_pr), (b_md, a_md)
 
 
-def build_target_curve(spec: GraphSpec, eq_ms: bool = False, *, device):
+def target_curve_power(spec: GraphSpec, nfft: int) -> np.ndarray:
+    """The target curve's zero-phase power response (float64, rFFT grid)."""
+    hp, lp, pr, md = _target_curve_bas(spec)
+    g_p, g_m = _db(0.35), _db(-0.25)
+    R = (design.zero_phase_power([hp], nfft)
+         * design.zero_phase_power([lp], nfft))
+    return R * (1.0 + (g_p - 1.0) * design.zero_phase_power([pr], nfft)
+                + (g_m - 1.0) * design.zero_phase_power([md], nfft))
+
+
+def build_target_curve(spec: GraphSpec, phase_mode: str = "minimum",
+                       eq_ms: bool = False, *, device):
     """Studio curve (minimum phase): HP 40 Hz, LP 18 kHz, +0.35 dB
     presence, -0.25 dB mud."""
+    if phase_mode == "linear_phase":
+        raise NotImplementedError(
+            "target_curve phase_mode='linear_phase' is not ported to "
+            "amw_tpu_torch yet (ROADMAP.md, 'Modules to port', item 6)")
     hp, lp, pr, md = _target_curve_bas(spec)
     g_p, g_m = _db(0.35), _db(-0.25)
 
@@ -73,12 +93,10 @@ def build_target_curve(spec: GraphSpec, eq_ms: bool = False, *, device):
         else:
             padlen = scipy_padlen([hp])
             settle = design.settle_len(hp, lp, pr, md)
-            nfft = design.fft_plan(s.n + 2 * padlen + 3 * settle + 16, device)
-            R = (design.zero_phase_power([hp], nfft)
-                 * design.zero_phase_power([lp], nfft))
-            R = R * (1.0 + (g_p - 1.0) * design.zero_phase_power([pr], nfft)
-                     + (g_m - 1.0) * design.zero_phase_power([md], nfft))
-            zp = make_zp_from_power(s, R, nfft, padlen, settle, device=device)
+            nfft = fft_staged.site_plan(
+                s.n + 2 * padlen + 3 * settle + 16, device)[0]
+            zp = make_zp_from_power(s, target_curve_power(s, nfft), nfft,
+                                    padlen, settle, device=device)
             params = [zp.params]
 
             def fn(x, params):
@@ -134,7 +152,8 @@ def build_style_eq(spec: GraphSpec, style: str = "standard", *, device):
         else:
             padlen = scipy_padlen([bands[0][0]])
             settle = design.settle_len(*[ba for ba, _ in bands])
-            nfft = design.fft_plan(s.n + 2 * padlen + 3 * settle + 16, device)
+            nfft = fft_staged.site_plan(
+                s.n + 2 * padlen + 3 * settle + 16, device)[0]
             R = np.ones(nfft // 2 + 1, np.float64)
             for ba, g in bands:
                 R = R * (1.0 + (g - 1.0) * design.zero_phase_power([ba], nfft))
@@ -181,7 +200,8 @@ def build_final_spectral_balance(spec: GraphSpec, *, device):
         else:
             padlen = scipy_padlen([bas[0]])
             settle = design.settle_len(*bas)
-            nfft = design.fft_plan(s.n + 2 * padlen + 3 * settle + 16, device)
+            nfft = fft_staged.site_plan(
+                s.n + 2 * padlen + 3 * settle + 16, device)[0]
             R = np.ones(nfft // 2 + 1, np.float64)
             for ba, g in zip(bas, gains):
                 R = R + (g - 1.0) * design.zero_phase_power([ba], nfft) * 0.25
@@ -196,3 +216,61 @@ def build_final_spectral_balance(spec: GraphSpec, *, device):
 
     settle = design.settle_len(*bas)
     return hybridize_op(spec, settle, scipy_padlen([bas[0]]), build)
+
+
+def build_final_balance_then_style(spec: GraphSpec, style: str = "standard",
+                                   *, device):
+    """Fused ``final_spectral_balance → style_eq``: one fast pass over the
+    product response, the two exact two-pass ops in turn on the edge
+    windows.  Returns ``None`` when the style has no EQ bands."""
+    bands = _style_bands(spec, style)
+    if not bands:
+        return None
+    bas_fb, gains_fb = _final_balance_bas(spec)
+    trim = _db(FINAL_TRIM_DB)
+    # composition transient <= the sum of the two ops' settles; padlen is
+    # per op (each exact sub-op extends inside the window)
+    settle = design.settle_len(*bas_fb) + design.settle_len(
+        *[ba for ba, _ in bands])
+    padlen = max(scipy_padlen([bas_fb[0]]), scipy_padlen([bands[0][0]]))
+
+    def build(s: GraphSpec):
+        if s.exact:
+            s1 = dataclasses.replace(s, hybrid=False)
+            p1, f1 = build_final_spectral_balance(s1, device=device)
+            p2, f2 = build_style_eq(s1, style, device=device)
+            params = [list(p1), list(p2)]
+
+            def fn(x, params):
+                return f2(f1(x, params[0]), params[1])
+
+        else:
+            nfft = fft_staged.site_plan(
+                s.n + 2 * padlen + 3 * settle + 16, device)[0]
+            R = np.ones(nfft // 2 + 1, np.float64)
+            for ba, g in zip(bas_fb, gains_fb):
+                R = R + (g - 1.0) * design.zero_phase_power([ba], nfft) * 0.25
+            R = R * trim
+            for ba, g in bands:
+                R = R * (1.0 + (g - 1.0) * design.zero_phase_power([ba], nfft))
+            zp = make_zp_from_power(s, R, nfft, padlen, settle, device=device)
+            params = [zp.params]
+
+            def fn(x, params):
+                return zp(x, params[0])
+
+        return params, fn
+
+    return hybridize_op(spec, settle, padlen, build)
+
+
+def build_rumble_filter(spec: GraphSpec, cutoff_hz: float = 80.0, *, device):
+    """Zero-phase Butterworth-2 high pass at ``cutoff_hz`` (20..200 Hz)."""
+    cutoff_hz = float(np.clip(cutoff_hz, 20.0, 200.0))
+    ba = design.butter_ba_norm(2, min(cutoff_hz / spec.nyq, 0.99), "high")
+    zp = make_zp(spec, [ba], device=device)
+
+    def fn(x, params):
+        return zp(x, params[0])
+
+    return [zp.params], fn

@@ -18,7 +18,7 @@ convolution, so responses are permuted once on the host
 restore natural order.  Responses built for the JAX package therefore
 carry over unchanged.
 
-Four of the JAX package's Pallas kernels are ported, each as a CUDA
+Six of the JAX package's Pallas kernels are ported, each as a CUDA
 kernel (``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
 ``torch.matmul`` with the DFT matrices, f32 arithmetic):
 
@@ -27,6 +27,9 @@ kernel (``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
 ======================================  =====================================
 ``_stage_a`` (complex, real-in,         :func:`_stage_a`: ``stage_a_plain`` /
 real-out)                               ``stage_a_cuda`` (fft_stage_a.cu)
+``_stage_bc_cb``                        :func:`_stage_bc_cb`:
+                                        ``bc_cb_plain`` /
+                                        ``bc_cb_cuda`` (fft_bccb.cu)
 ``_stage_bccb_multi``                   :func:`_stage_bccb_multi`:
                                         ``bccb_multi_plain`` /
                                         ``bccb_multi_cuda`` (fft_bccb.cu)
@@ -36,13 +39,16 @@ real-out)                               ``stage_a_cuda`` (fft_stage_a.cu)
 ``_reduce_stage_a_packed``              :func:`_reduce_stage_a_packed`:
                                         ``reduce_packed_plain`` /
                                         ``reduce_packed_cuda`` (fft_reduce.cu)
+``_reduce_stage_a``                     :func:`_reduce_stage_a`:
+                                        ``reduce_plain`` /
+                                        ``reduce_cuda`` (fft_reduce.cu)
 ======================================  =====================================
 
 A dispatcher takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; each ``*_cuda`` wrapper counts its
-launches in ``.launches``.  The unpacked reduce (``_reduce_stage_a``, odd
-row counts) is not ported: :func:`roundtrip_multi_reduce` raises for it on
-CUDA (ROADMAP.md, 'TPU kernels to port', kernel 12).
+launches in ``.launches``.  The split-mode stages (``_stage_bc``,
+``_stage_cb``, ``_stage_cb_multi``) are not ported: no entry point here
+uses them (ROADMAP.md, 'TPU kernels to port').
 
 The plan tables (``plan_params``: t1 and T2 for both directions) are
 runtime parameters in the JAX package's nesting, float32 numpy arrays from
@@ -256,6 +262,13 @@ def bccb_multi_plain(xr, xi, resps, nfft: int, tables):
     return z.real.contiguous(), z.imag.contiguous()
 
 
+def bc_cb_plain(xr, xi, resp, nfft: int, tables):
+    """Plain fused forward B+C → one response → inverse C+B: stage-A output
+    ``[R, nfft]`` planes and ``resp`` [2, nfft] (permuted) → ``[R, nfft]``
+    planes for the final inverse stage A."""
+    return bccb_multi_plain(xr, xi, resp[None], nfft, tables)
+
+
 def inv_join_plain(Yr, Yi, K: int, nfft: int, tables):
     """Plain packed inverse stage A over K response planes of R2 rows:
     ``[K·R2, nfft]`` planes → one ``[K, 2·R2, nfft]`` (real rows, then
@@ -276,6 +289,14 @@ def reduce_packed_plain(Yr, Yi, K: int, R2: int, nfft: int, band_fns,
     acc_r = sum(band_fns[k](yr[k]) for k in range(K))
     acc_i = sum(band_fns[k](yi[k]) for k in range(K))
     return torch.cat([acc_r, acc_i], dim=0)
+
+
+def reduce_plain(Yr, Yi, K: int, R: int, nfft: int, band_fns, tables):
+    """Plain unpacked reduce: inverse stage A of K spectra of R rows, the
+    real part, ``band_fns[k]`` on band k, band sum → ``[R, nfft]``."""
+    yr, _ = stage_a_plain(Yr, Yi, nfft, True, tables, real_out=True)
+    yr = yr.reshape(K, R, nfft)
+    return sum(band_fns[k](yr[k]) for k in range(K))
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +389,23 @@ def inv_join_cuda(Yr, Yi, K: int, nfft: int, tables):
 inv_join_cuda.launches = 0
 
 
+def _bc_args(name, xr, xi, resps, resp_shape, nfft, tables):
+    """The checks of the B/C kernels' wrappers; returns the forward and
+    inverse T2 tables."""
+    if not plan_ok(nfft):
+        raise ValueError(f"{name}: no plan for nfft={nfft}")
+    _check(name, xr)
+    if xr.ndim != 2 or xr.shape[1] != nfft:
+        raise ValueError(f"{name}: planes {tuple(xr.shape)} for nfft={nfft}")
+    _check(name, xi, shape=xr.shape)
+    _check(name, resps, shape=resp_shape)
+    dev = xr.device
+    if resps.device != dev or xi.device != dev:
+        raise ValueError(f"{name}: tensors must share one device")
+    return (_check_tables(name, tables, nfft, False, dev)[2:]
+            + _check_tables(name, tables, nfft, True, dev)[2:])
+
+
 def bccb_multi_cuda(xr, xi, resps, nfft: int, tables):
     """Launch the B → C × K responses → C⁻¹ → B⁻¹ kernels (replaces
     ``fft_pallas._stage_bccb_multi``).  Three passes through device memory:
@@ -376,34 +414,41 @@ def bccb_multi_cuda(xr, xi, resps, nfft: int, tables):
     in place on the output."""
     from . import _cuda
 
-    if not plan_ok(nfft):
-        raise ValueError(f"bccb_multi_cuda: no plan for nfft={nfft}")
-    _check("bccb_multi_cuda", xr)
-    if xr.ndim != 2 or xr.shape[1] != nfft:
-        raise ValueError(f"bccb_multi_cuda: planes {tuple(xr.shape)} for "
-                         f"nfft={nfft}")
-    _check("bccb_multi_cuda", xi, shape=xr.shape)
     K = resps.shape[0]
-    _check("bccb_multi_cuda", resps, shape=(K, 2, nfft))
-    dev = xr.device
-    if resps.device != dev or xi.device != dev:
-        raise ValueError("bccb_multi_cuda: tensors must share one device")
-    _, _, t2r, t2i = _check_tables("bccb_multi_cuda", tables, nfft, False,
-                                   dev)
-    _, _, it2r, it2i = _check_tables("bccb_multi_cuda", tables, nfft, True,
-                                     dev)
+    t2 = _bc_args("bccb_multi_cuda", xr, xi, resps, (K, 2, nfft), nfft,
+                  tables)
     R = xr.shape[0]
     zr = torch.empty_like(xr)
     zi = torch.empty_like(xi)
-    out_r = torch.empty((K * R, nfft), dtype=torch.float32, device=dev)
+    out_r = torch.empty((K * R, nfft), dtype=torch.float32, device=xr.device)
     out_i = torch.empty_like(out_r)
-    _cuda.launch("amw_fft_bccb", xr, xi, resps, t2r, t2i, it2r, it2i, zr, zi,
-                 out_r, out_i, R, nfft // (A * B), K)
+    _cuda.launch("amw_fft_bccb", xr, xi, resps, *t2, zr, zi, out_r, out_i, R,
+                 nfft // (A * B), K)
     bccb_multi_cuda.launches += 1
     return out_r, out_i
 
 
 bccb_multi_cuda.launches = 0
+
+
+def bc_cb_cuda(xr, xi, resp, nfft: int, tables):
+    """Launch the B → C × one response → C⁻¹ → B⁻¹ kernels (replaces
+    ``fft_pallas._stage_bc_cb``, the round trip of ``apply_response``): the
+    three passes of :func:`bccb_multi_cuda` at K = 1, ``resp`` [2, nfft]."""
+    from . import _cuda
+
+    t2 = _bc_args("bc_cb_cuda", xr, xi, resp, (2, nfft), nfft, tables)
+    zr = torch.empty_like(xr)
+    zi = torch.empty_like(xi)
+    out_r = torch.empty_like(xr)
+    out_i = torch.empty_like(xr)
+    _cuda.launch("amw_fft_bc_cb", xr, xi, resp, *t2, zr, zi, out_r, out_i,
+                 xr.shape[0], nfft // (A * B))
+    bc_cb_cuda.launches += 1
+    return out_r, out_i
+
+
+bc_cb_cuda.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -444,6 +489,28 @@ def reduce_packed_cuda(Yr, Yi, K: int, R2: int, nfft: int, bands, tables):
 reduce_packed_cuda.launches = 0
 
 
+def reduce_cuda(Yr, Yi, K: int, R: int, nfft: int, bands, tables):
+    """Launch the unpacked reduce kernel (replaces
+    ``fft_pallas._reduce_stage_a``): ``[K·R, nfft]`` planes and the [K, 8]
+    map table ``bands`` → ``[R, nfft]`` (the real part, mapped and summed
+    over the bands)."""
+    from . import _cuda
+
+    _check("reduce_cuda", Yr, shape=(K * R, nfft))
+    _check("reduce_cuda", Yi, shape=(K * R, nfft))
+    _check("reduce_cuda", bands, shape=(K, 8))
+    t1r, t1i, _, _ = _check_tables("reduce_cuda", tables, nfft, True,
+                                   Yr.device)
+    out = torch.empty((R, nfft), dtype=torch.float32, device=Yr.device)
+    _cuda.launch("amw_fft_reduce", Yr, Yi, t1r, t1i, bands, out, R, K,
+                 nfft // A, 1.0 / nfft)
+    reduce_cuda.launches += 1
+    return out
+
+
+reduce_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # stage dispatch (the JAX package's stage names): plain on the CPU, the
 # kernel on CUDA
@@ -464,6 +531,12 @@ def _stage_a(xr, xi, nfft, inverse, tables, real_in=False, real_out=False):
     return stage_a_cuda(xr, xi, nfft, inverse, tables, real_in, real_out)
 
 
+def _stage_bc_cb(xr, xi, resp, nfft, tables):
+    if _on_cpu("_stage_bc_cb", xr):
+        return bc_cb_plain(xr, xi, resp, nfft, tables)
+    return bc_cb_cuda(xr, xi, resp, nfft, tables)
+
+
 def _stage_bccb_multi(xr, xi, resps, nfft, tables):
     if _on_cpu("_stage_bccb_multi", xr):
         return bccb_multi_plain(xr, xi, resps, nfft, tables)
@@ -481,6 +554,13 @@ def _reduce_stage_a_packed(Yr, Yi, K, R2, nfft, band_fns, tables):
         return reduce_packed_plain(Yr, Yi, K, R2, nfft, band_fns, tables)
     return reduce_packed_cuda(Yr, Yi, K, R2, nfft,
                               band_table(band_fns, Yr.device), tables)
+
+
+def _reduce_stage_a(Yr, Yi, K, R, nfft, band_fns, tables):
+    if _on_cpu("_reduce_stage_a", Yr):
+        return reduce_plain(Yr, Yi, K, R, nfft, band_fns, tables)
+    return reduce_cuda(Yr, Yi, K, R, nfft, band_table(band_fns, Yr.device),
+                       tables)
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +585,29 @@ def _pack_ok(R: int) -> bool:
 def _resolve_tables(tables, nfft, device):
     return _device_tables(nfft, torch.device(device)) if tables is None \
         else tables
+
+
+def apply_response(x, resp_perm, nfft: int, tables=None,
+                   n_out: int | None = None):
+    """``irfft(rfft(x, nfft) · H)[..., :n_out]`` for real ``x`` [..., n]
+    and one permuted response ``resp_perm`` [2, nfft]
+    (:func:`permute_full_response`) → real [..., n_out] (``nfft`` when
+    None).  Even row counts ride packed (see :func:`roundtrip_multi`): the
+    packed forward stage A, the round trip, the join at K = 1; odd row
+    counts run stage A real-in, the round trip, stage A real-out."""
+    tables = _resolve_tables(tables, nfft, x.device)
+    xr, lead, R = _prep_rows(x, nfft)
+    m = nfft if n_out is None else n_out
+    if _pack_ok(R):
+        R2 = R // 2
+        Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
+        Yr, Yi = _stage_bc_cb(Xr, Xi, resp_perm, nfft, tables)
+        out = _stage_a_inv_join(Yr, Yi, 1, nfft, tables)[0]
+        return out[:, :m].reshape(lead + (m,))
+    Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
+    Yr, Yi = _stage_bc_cb(Xr, Xi, resp_perm, nfft, tables)
+    Yr, _ = _stage_a(Yr, Yi, nfft, True, tables, real_out=True)
+    return Yr[:, :m].reshape(lead + (m,))
 
 
 def roundtrip_multi(x, resps_perm, nfft: int, n_out: int, tables=None):
@@ -546,13 +649,10 @@ def roundtrip_multi_reduce(x, resps_perm, nfft: int, n_out: int, band_fns,
         Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
         out = _reduce_stage_a_packed(Yr, Yi, K, R2, nfft, band_fns, tables)
         return out[:, :n_out].reshape(lead + (n_out,))
-    if x.is_cuda:
-        raise NotImplementedError(
-            f"roundtrip_multi_reduce over {R} rows (odd): the unpacked reduce "
-            "kernel fft_pallas._reduce_stage_a has no Hopper port yet "
-            "(ROADMAP.md, 'TPU kernels to port', kernel 12)")
-    ys = roundtrip_multi(x, resps_perm, nfft, n_out, tables)
-    return sum(band_fns[k](ys[k]) for k in range(K))
+    Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
+    Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+    out = _reduce_stage_a(Yr, Yi, K, R, nfft, band_fns, tables)
+    return out[:, :n_out].reshape(lead + (n_out,))
 
 
 # ---------------------------------------------------------------------------
@@ -560,14 +660,19 @@ def roundtrip_multi_reduce(x, resps_perm, nfft: int, n_out: int, band_fns,
 
 
 def site_plan(n: int, device) -> tuple[int, bool]:
-    """``(nfft, staged)`` for a fused site of at least ``n`` points: the TPU
-    plan (``design.tpu_fft_plan``) on the staged FFT where :func:`enabled`
-    takes it, else the CPU rule's size (``design.fft_plan``) on
-    ``torch.fft``."""
+    """``(nfft, staged)`` for a full-length FFT of at least ``n`` points:
+    the TPU plan (``design.tpu_fft_plan``) on the staged FFT where
+    :func:`enabled` takes it, else the CPU rule's size
+    (``design.next_fft_size``) on ``torch.fft``.  This is the JAX package's
+    ``design.next_fft_size`` on each backend (a power of two its Pallas FFT
+    takes is preferred exactly where that FFT is enabled), so every builder
+    plans with it: the fused sites and fast zero-phase passes run the staged
+    FFT when ``staged``, the exact two-pass filters and the meters
+    ``torch.fft`` at ``nfft`` either way."""
     plan = design.tpu_fft_plan(n)
     if enabled(plan, device):
         return plan, True
-    return design.fft_plan(n, device), False
+    return design.next_fft_size(n), False
 
 
 def site_params(responses, nfft: int, *rest) -> list:

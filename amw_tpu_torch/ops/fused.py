@@ -1,7 +1,6 @@
-"""Cross-op spectrum-sharing fusions of the v1 chain.
+"""Cross-op spectrum-sharing fusions of the v1 chain and the v2 chain.
 
-Counterpart of ``build_target_then_deesser`` and
-``build_normalize_then_final`` in ``amw_tpu/ops/fused.py``:
+Counterpart of ``amw_tpu/ops/fused.py``:
 
 - ``target_curve → deesser``: the de-esser's sidechain is a zero-phase
   bandpass of the target-curve output, so both come from one forward FFT
@@ -9,7 +8,10 @@ Counterpart of ``build_target_then_deesser`` and
 - ``normalize_lufs → final_spectral_balance [→ style_eq]``: normalization
   is a per-track scalar gain, so the K-weighted measurement and the EQ read
   the same spectrum: ``out = g · irfft(X·R_eq)`` with ``g`` from
-  ``irfft(X·Hk)``.
+  ``irfft(X·Hk)``;
+- ``target_curve → dynamics`` (the v2 chain): the target curve's power
+  response rides the band split's shared forward FFT
+  (:func:`target_curve_pre` in front of ``bands.band_split_plan``).
 
 Fast interiors skip the odd extension (only the outer settle+padlen
 samples depend on it, and those are replaced by the spliced exact edge
@@ -34,11 +36,11 @@ from ..spec import GraphSpec
 from . import design, fft_staged, validctx
 from .eq import (_db, _final_balance_bas, _style_bands, _target_curve_bas,
                  build_final_spectral_balance, build_style_eq,
-                 build_target_curve)
+                 build_target_curve, target_curve_power)
 from .meters import (block_energies, gated_loudness, k_weight_settle,
                      normalize_lufs_gain, plan_blocks, valid_block_mask)
 from .scan import ar_coefs, deesser_gain_combine
-from .zphase import _edge_windows, make_zp, pack_complex, scipy_padlen
+from .zphase import PreLTI, _edge_windows, make_zp, pack_complex, scipy_padlen
 
 
 def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
@@ -53,7 +55,6 @@ def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
     if lo_n >= hi_n or not (spec.exact and spec.hybrid):
         return None
     hp, lp, pr, md = _target_curve_bas(spec)
-    g_p, g_m = _db(0.35), _db(-0.25)
     band = design.butter_ba_norm(2, (lo_n, hi_n), "band")
 
     settle_t = design.settle_len(hp, lp, pr, md)
@@ -66,10 +67,7 @@ def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
     nfft, staged = fft_staged.site_plan(
         spec.n + 2 * padlen + 3 * (settle_t + settle_b) + 16, device)
 
-    Rt = (design.zero_phase_power([hp], nfft)
-          * design.zero_phase_power([lp], nfft))
-    Rt = Rt * (1.0 + (g_p - 1.0) * design.zero_phase_power([pr], nfft)
-               + (g_m - 1.0) * design.zero_phase_power([md], nfft))
+    Rt = target_curve_power(spec, nfft)
     Rtb = Rt * design.zero_phase_power([band], nfft)
 
     small_spec = dataclasses.replace(spec, n=w, hybrid=False)
@@ -114,6 +112,26 @@ def build_target_then_deesser(spec: GraphSpec, threshold_db: float = -6.0,
         return deesser_gain_combine(y3, sc, att, rel, thresh, ratio, k, nv=nv)
 
     return params, fn
+
+
+def target_curve_pre(spec: GraphSpec) -> PreLTI:
+    """The minimum-phase, per-channel target curve as a
+    :class:`~amw_tpu_torch.ops.zphase.PreLTI`, for fusion in front of a
+    band split."""
+    hp, lp, pr, md = _target_curve_bas(spec)
+    return PreLTI(settle=design.settle_len(hp, lp, pr, md),
+                  padlen=scipy_padlen([hp]),
+                  power=lambda nfft: target_curve_power(spec, nfft),
+                  small_build=build_target_curve)
+
+
+def build_target_then_dynamics(spec: GraphSpec, *, device, **dyn_kwargs):
+    """Fused ``target_curve`` (minimum phase, per channel) + ``dynamics``:
+    the band split's shared forward FFT also carries the target curve."""
+    from .bands import build_dynamics
+
+    return build_dynamics(spec, pre=target_curve_pre(spec), device=device,
+                          **dyn_kwargs)
 
 
 def build_normalize_then_final(spec: GraphSpec, target_lufs: float = -14.0,

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import design, validctx
+from . import design, fft_staged, validctx
 from .fdfilter import lfilter_fd
 
 # Per-channel weights for up to 5 channels (L, R, C, Ls, Rs).
@@ -177,7 +177,7 @@ def build_normalize_lufs(spec, target_lufs: float = -14.0, *, device):
     """Op builder: measure integrated loudness per track and apply the
     clamped normalization gain (pipeline.py:644-655).  ``x``: [B, C, N]."""
     settle = k_weight_settle(spec.sr)
-    nfft = design.fft_plan(spec.n + settle, device)
+    nfft = fft_staged.site_plan(spec.n + settle, device)[0]
     plan = plan_blocks(spec.sr, spec.n)
     params = [k_weight_response(spec.sr, nfft), np.float32(target_lufs)]
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``amw_tpu/ops/scan.py``.  The recurrence is
 
-    env[t] = c_t * env[t-1] + (1 - c_t) * v[t],
+    env[t] = c_t * env[t-1] + (1 - c_t) * v[t]
+           = v[t] + c_t * (env[t-1] - v[t]),
     c_t    = attack_coef  if v[t] > env[t-1] else release_coef,
 
 a contraction with factor ``max(attack, release) < 1``, so the time axis
@@ -11,12 +12,19 @@ the previous chunk) before their own ``C`` samples and then equal the
 exact recurrence to ``eps``.  Chunk 0's warm-up is ``v[0]``, the
 recurrence's fixed point, which reproduces ``env[0] = v[0]``.
 
-:func:`env_gain` (the de-esser's envelope → gain) runs the CUDA kernel
-``csrc/env_gain.cu`` on a GPU tensor and its plain PyTorch version
-(:func:`env_gain_plain`) on a CPU tensor.  :func:`envelope_follower` is the
-plain chunked envelope for CPU tensors; on a CUDA tensor it raises until its
-kernels are ported (ROADMAP.md, 'TPU kernels to port': the envelope mode of
-``_win_scan_pallas`` and ``_env_pallas``).
+Three CUDA kernels, each beside its plain PyTorch version, which runs only
+for a tensor on the CPU:
+
+- :func:`env_gain` (the de-esser's envelope → gain): ``csrc/env_gain.cu``
+  / :func:`env_gain_plain` (replaces ``_win_scan_pallas`` in gain mode);
+- :func:`envelope_follower`, the route the JAX package takes for long
+  signals: the chunked envelope ``csrc/env_scan.cu`` ``amw_env_scan`` /
+  :func:`env_scan_plain` (replaces ``_win_scan_pallas`` in envelope mode);
+- its route for short signals (``n <= max(2·W, 2·min_chunk)``, the JAX
+  package's ``_env_blocks``): the exact recurrence along each row,
+  ``amw_env_rows`` / :func:`env_rows_plain` (replaces ``_env_pallas``).
+
+All three share one recurrence core (``csrc/env_core.cuh``).
 """
 
 from __future__ import annotations
@@ -44,43 +52,49 @@ def warmup_len(attack_coef: float, release_coef: float,
     return max(1, int(math.ceil(math.log(eps) / math.log(rho))))
 
 
-# Chunk geometry of the GPU kernel: about this many independent chunk
+# Chunk geometry of the GPU kernels: about this many independent chunk
 # sequences (one thread each) per call, chunk lengths in multiples of 256.
 _TARGET_SEQS = 4096
 _CHUNK_ALIGN = 256
+# The plain loop on the CPU pays per step and per sequence: fewer, longer
+# chunks there.
+_CPU_TARGET_SEQS = 256
+# The JAX package's envelope_follower default: signals up to twice this
+# (or twice the warm-up) take the one-sequence-per-row route.
+MIN_CHUNK = 16384
 
 
-def chunk_geometry(rows: int, n: int, w0: int) -> tuple[int, int, int]:
+def chunk_geometry(rows: int, n: int, w0: int,
+                   target: int = _TARGET_SEQS) -> tuple[int, int, int]:
     """``(W, C, K)``: warm-up length, chunk length and chunk count for
     ``rows`` sequences of ``n`` samples with warm-up ``w0``.
 
     A thread's serial depth is ``W + C``; W is fixed by the ballistics, so
-    chunks are cut short enough to give ~_TARGET_SEQS sequences.  When the
+    chunks are cut short enough to give ~``target`` sequences.  When the
     depth would not drop below ``n``, one chunk with no warm-up runs the
     exact recurrence."""
-    k_target = max(1, -(-_TARGET_SEQS // max(rows, 1)))
+    k_target = max(1, -(-target // max(rows, 1)))
     C = -(-max(-(-n // k_target), 1) // _CHUNK_ALIGN) * _CHUNK_ALIGN
     if w0 + C >= n:
         return 0, max(n, 1), 1
     return w0, C, -(-n // C)
 
 
-def _win_views(v2: torch.Tensor, W: int, C: int, K: int, t0: int,
+def _win_views(vp: torch.Tensor, W: int, C: int, K: int, t0: int,
                tb: int) -> torch.Tensor:
-    """Steps ``[t0, t0 + tb)`` of the joined warm-up/body views of
-    ``v2`` [rows, n], time-major: ``[tb, rows * K]``.
+    """Steps ``[t0, t0 + tb)`` of the joined warm-up/body views of a
+    signal [rows, n], time-major: ``[tb, rows * K]``.  ``vp`` is the
+    signal with one zero appended to each row ([rows, n + 1]).
 
     Step ``t`` of chunk ``kk`` reads global position ``kk*C - W + t``:
     the JAX package's warm-up view ``P`` [M, W] for ``t < W`` and its body
     view ``A`` [M, C] after (``amw_tpu`` scan.py ``_win_views``), built a
-    block of steps at a time.  Positions below 0 read ``v2[:, 0]`` (the
+    block of steps at a time.  Positions below 0 read ``vp[:, 0]`` (the
     fixed point), positions from ``n`` on read 0 (the body's right pad)."""
-    rows, n = v2.shape
-    pos = (torch.arange(K, device=v2.device)[None, :] * C - W + t0
-           + torch.arange(tb, device=v2.device)[:, None])  # [tb, K]
-    vp = F.pad(v2, (0, 1))  # index n reads the zero pad
-    idx = pos.clamp(min=0, max=n)
-    slab = vp[:, idx]  # [rows, tb, K]
+    rows, n = vp.shape[0], vp.shape[1] - 1
+    pos = (torch.arange(K, device=vp.device)[None, :] * C - W + t0
+           + torch.arange(tb, device=vp.device)[:, None])  # [tb, K]
+    slab = vp[:, pos.clamp(min=0, max=n)]  # [rows, tb, K]
     return slab.permute(1, 0, 2).reshape(tb, rows * K)
 
 
@@ -94,20 +108,33 @@ def _env_chunks(v2: torch.Tensor, W: int, C: int, K: int, attack: float,
                 release: float) -> torch.Tensor:
     """The chunked recurrence over ``v2`` [rows, n] (nonnegative): each
     chunk's body envelope, ``[rows * K, C]``.  The state starts at each
-    chunk's first warm-up value, as in the kernels."""
+    chunk's first warm-up value, as in the kernels, and each step is the
+    kernels' ``e = v + c·(e - v)``, in place (the loop runs one step per
+    Python iteration)."""
     tb = 512
-    e = None
-    body = []
+    dev = v2.device
+    M = v2.shape[0] * K
+    a = torch.tensor(attack, dtype=v2.dtype, device=dev)
+    r = torch.tensor(release, dtype=v2.dtype, device=dev)
+    e = torch.empty(M, dtype=v2.dtype, device=dev)
+    up = torch.empty(M, dtype=torch.bool, device=dev)
+    c = torch.empty_like(e)
+    d = torch.empty_like(e)
+    body = torch.empty((C, M), dtype=v2.dtype, device=dev)  # time-major
+    vp = F.pad(v2, (0, 1))  # index n reads the zero pad
     for t0 in range(0, W + C, tb):
-        blk = _win_views(v2, W, C, K, t0, min(tb, W + C - t0))
-        if e is None:
-            e = blk[0].clone()
-        for t, v in enumerate(blk, start=t0):
-            coef = torch.where(v > e, attack, release)
-            e = coef * e + (1.0 - coef) * v
-            if t >= W:
-                body.append(e)
-    return torch.stack(body, dim=1)
+        blk = _win_views(vp, W, C, K, t0, min(tb, W + C - t0))
+        if t0 == 0:
+            e.copy_(blk[0])
+        for t in range(blk.shape[0]):
+            v = blk[t]
+            torch.gt(v, e, out=up)
+            torch.where(up, a, r, out=c)
+            torch.sub(e, v, out=d)
+            # body steps write their row of the output and carry it on
+            e = torch.addcmul(v, c, d, out=body[t0 + t - W]
+                              if t0 + t >= W else e)
+    return body.t()
 
 
 def env_gain_plain(x2: torch.Tensor, nv_rows: torch.Tensor, W: int, C: int,
@@ -168,31 +195,109 @@ def env_gain(x2, nv_rows, W, C, K, attack, release, thresh, ratio, floor):
     return env_gain_plain(*args)
 
 
+def env_scan_plain(v2: torch.Tensor, W: int, C: int, K: int, attack: float,
+                   release: float) -> torch.Tensor:
+    """Plain PyTorch version of the chunked envelope kernel: the chunked
+    recurrence over ``v2`` [rows, n] (nonnegative).  Returns [rows, n]."""
+    rows, n = v2.shape
+    env = _env_chunks(v2, W, C, K, attack, release)
+    return env.reshape(rows, K * C)[:, :n]
+
+
+def env_rows_plain(v2: torch.Tensor, attack: float,
+                   release: float) -> torch.Tensor:
+    """Plain PyTorch version of the one-sequence-per-row envelope kernel:
+    the exact recurrence along each row of ``v2`` [rows, n], env[0] =
+    v[0].  Returns [rows, n]."""
+    return _env_chunks(v2, 0, v2.shape[1], 1, attack, release)
+
+
+def _env_input(name: str, v2: torch.Tensor):
+    if not v2.is_cuda or v2.dtype != torch.float32 or v2.ndim != 2:
+        raise ValueError(f"{name}: need a CUDA float32 [rows, n] tensor")
+    if not v2.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    rows, n = v2.shape
+    if rows >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"{name}: shape {tuple(v2.shape)} too large")
+    return rows, n
+
+
+def env_scan_cuda(v2: torch.Tensor, W: int, C: int, K: int, attack: float,
+                  release: float) -> torch.Tensor:
+    """Launch the chunked envelope kernel (replaces ``amw_tpu/ops/scan.py``
+    ``_win_scan_pallas`` in envelope mode) on ``v2`` f32 [rows, n]
+    (nonnegative, contiguous, on a CUDA device)."""
+    from . import _cuda
+
+    rows, n = _env_input("env_scan_cuda", v2)
+    if K * C < n or (K - 1) * C >= n or rows * K >= 2 ** 31 or W < 0:
+        raise ValueError(f"env_scan_cuda: bad geometry W={W} C={C} K={K} "
+                         f"for n={n}")
+    out = torch.empty_like(v2)
+    _cuda.launch("amw_env_scan", v2, out, rows, n, W, C, K, attack, release)
+    env_scan_cuda.launches += 1
+    return out
+
+
+env_scan_cuda.launches = 0
+
+
+def env_rows_cuda(v2: torch.Tensor, attack: float,
+                  release: float) -> torch.Tensor:
+    """Launch the one-sequence-per-row envelope kernel (replaces
+    ``amw_tpu/ops/scan.py`` ``_env_pallas``) on ``v2`` f32 [rows, n]
+    (nonnegative, contiguous, on a CUDA device)."""
+    from . import _cuda
+
+    rows, n = _env_input("env_rows_cuda", v2)
+    out = torch.empty_like(v2)
+    _cuda.launch("amw_env_rows", v2, out, rows, n, attack, release)
+    env_rows_cuda.launches += 1
+    return out
+
+
+env_rows_cuda.launches = 0
+
+
+def short_route(n: int, w0: int) -> bool:
+    """Does the JAX package's ``envelope_follower`` take its short route
+    (one sequence per row, ``_env_blocks``) for ``n`` samples and warm-up
+    ``w0``?"""
+    return n <= max(2 * w0, 2 * MIN_CHUNK)
+
+
 def envelope_follower(v: torch.Tensor, attack_coef: float,
                       release_coef: float, *, eps: float = 1e-8):
-    """Attack/release envelope of a nonnegative ``v`` ([..., N]), chunked
-    like :func:`env_gain` (plain PyTorch, CPU tensors only; equal to the
-    reference's sequential follower to ``eps``, chunk 0 exactly).  The JAX
-    package runs Pallas kernels here, which have no Hopper port yet, so a
-    CUDA tensor raises ``NotImplementedError``."""
-    if v.is_cuda:
-        raise NotImplementedError(
-            "envelope_follower on CUDA: the JAX package's envelope kernels "
-            "(amw_tpu/ops/scan.py _win_scan_pallas in envelope mode, "
-            "_env_pallas) have no Hopper port yet (ROADMAP.md, 'TPU kernels "
-            "to port', kernels 3 and 2'; 'Modules to port', item 4)")
-    if v.device.type != "cpu":
-        raise ValueError(f"envelope_follower: no kernel for {v.device}")
+    """Attack/release envelope of a nonnegative ``v`` ([..., N]); equal to
+    the reference's sequential follower to ``eps`` (chunk 0 exactly).
+
+    The route is the JAX package's: short signals (:func:`short_route`) run
+    the exact recurrence along each row (:func:`env_rows_cuda`), longer
+    ones the chunked recurrence (:func:`env_scan_cuda`, this module's
+    :func:`chunk_geometry`).  A CUDA tensor launches the kernel; a CPU
+    tensor takes its plain version (with fewer, longer chunks)."""
     n = v.shape[-1]
     if n == 0:
         return v
+    on_cpu = not v.is_cuda
+    if on_cpu and v.device.type != "cpu":
+        raise ValueError(f"envelope_follower: no kernel for {v.device}")
     lead = v.shape[:-1]
     v2 = v.reshape(-1, n)
     rows = v2.shape[0]
-    W, C, K = chunk_geometry(rows, n, warmup_len(attack_coef, release_coef,
-                                                 eps))
-    env = _env_chunks(v2, W, C, K, attack_coef, release_coef)
-    return env.reshape(rows, K * C)[:, :n].reshape(lead + (n,))
+    a, r = float(attack_coef), float(release_coef)
+    w0 = warmup_len(a, r, eps)
+    if short_route(n, w0):
+        env = (env_rows_plain(v2, a, r) if on_cpu
+               else env_rows_cuda(v2.contiguous(), a, r))
+    elif on_cpu:
+        env = env_scan_plain(v2, *chunk_geometry(rows, n, w0,
+                                                 _CPU_TARGET_SEQS), a, r)
+    else:
+        env = env_scan_cuda(v2.contiguous(), *chunk_geometry(rows, n, w0),
+                            a, r)
+    return env.reshape(lead + (n,))
 
 
 def deesser_gain_combine(y3: torch.Tensor, sc: torch.Tensor, attack: float,
@@ -216,7 +321,8 @@ def deesser_gain_combine(y3: torch.Tensor, sc: torch.Tensor, attack: float,
         nv_lead = nv.to(torch.int32).reshape(
             nv.shape + (1,) * (len(lead) - nv.ndim)).expand(lead)
         nv_rows = nv_lead.reshape(rows).contiguous()
-    W, C, K = chunk_geometry(rows, n, warmup_len(attack, release, eps))
+    W, C, K = chunk_geometry(rows, n, warmup_len(attack, release, eps),
+                             _TARGET_SEQS if sc.is_cuda else _CPU_TARGET_SEQS)
     gain = env_gain(sc.reshape(rows, n).contiguous(), nv_rows, W, C, K,
                     attack, release, thresh, ratio, floor)
     gain = box_smooth_same(gain, k).clamp(floor, 1.0)

@@ -12,8 +12,12 @@ the GraphSpec:
 Every filter object exposes ``.params`` (a list of float32 numpy arrays;
 complex responses travel as stacked real/imag planes, as in the JAX
 package) and is called as ``filt(x, params)`` with the tensor version of
-that list.  Builders take the ``device`` the graph will run on only for the
-FFT-plan guard (:func:`~amw_tpu_torch.ops.design.fft_plan`).
+that list.  Builders take the ``device`` the graph will run on to plan
+their FFTs (``fft_staged.site_plan``): a fast pass at a plan the staged FFT
+takes (on CUDA from about 5.8 s at 44.1 kHz) carries the permuted response
+and the plan tables, as the JAX package's ``ZP(pallas=True)``, and runs
+``fft_staged.apply_response``; exact two-pass filters run ``torch.fft`` at
+every size, as the JAX package runs XLA's FFT there.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ import numpy as np
 import torch
 
 from ..spec import GraphSpec
-from . import design, validctx
-from .fdfilter import filtfilt_fd, lfilter_fd
+from . import design, fft_staged, validctx
+from .fdfilter import filtfilt_fd, lfilter_fd, odd_ext, odd_ext_valid
 
 
 def scipy_padlen(ba_pairs) -> int:
@@ -46,13 +50,16 @@ def unpack_complex(p: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class ZP:
-    """One zero-phase pass (two-pass exact or fast)."""
+    """One zero-phase pass (two-pass exact or fast).  ``staged``: a fast
+    pass whose params are ``[permuted response, plan tables]`` for the
+    staged FFT."""
 
     nfft: int
     padlen: int
     settle: int
     exact: bool
     params: list = field(repr=False)  # [resp]: packed complex | f32 power
+    staged: bool = False
 
     def __call__(self, x, params):
         resp = params[0]
@@ -64,6 +71,15 @@ class ZP:
             if self.exact:
                 return lfilter_fd(x, unpack_complex(resp), self.nfft)
             return x
+        if self.staged:
+            n = x.shape[-1]
+            p = min(self.padlen, max(n - 1, 0))
+            # extend and zero-pad to nfft in one concatenate
+            core = (odd_ext(x, p, pad_to=self.nfft) if nv is None
+                    else odd_ext_valid(x, p, nv, pad_to=self.nfft))
+            y = fft_staged.apply_response(core, resp, self.nfft,
+                                          tables=params[1])
+            return validctx.mask_tail(y[..., p:p + n], nv)
         H = unpack_complex(resp) if self.exact else resp
         return filtfilt_fd(x, H, self.nfft, padlen=self.padlen,
                            settle=self.settle, exact=self.exact, nv=nv)
@@ -120,18 +136,15 @@ def make_zp(spec: GraphSpec, ba_pairs, nfft: int | None = None, *, device):
     padlen = scipy_padlen(ba_pairs)
 
     def build(exact: bool, n: int, nfft_in=None):
-        if nfft_in:
-            design.check_fft_plan(nfft_in, device)
-            nfft_l = nfft_in
-        else:
-            nfft_l = design.fft_plan(n + 2 * padlen + 3 * settle + 16, device)
+        nfft_l = nfft_in or fft_staged.site_plan(
+            n + 2 * padlen + 3 * settle + 16, device)[0]
         if exact:
             resp = pack_complex(design.cascade_response(ba_pairs, nfft_l))
             return ZP(nfft=nfft_l, padlen=padlen, settle=settle, exact=True,
                       params=[resp])
-        power = design.zero_phase_power(ba_pairs, nfft_l)
-        return ZP(nfft=nfft_l, padlen=padlen, settle=settle, exact=False,
-                  params=[power.astype(np.float32)])
+        return make_zp_from_power(spec, design.zero_phase_power(ba_pairs,
+                                                                nfft_l),
+                                  nfft_l, padlen, settle, device=device)
 
     if not spec.exact:
         return build(False, spec.n, nfft)
@@ -145,8 +158,12 @@ def make_zp(spec: GraphSpec, ba_pairs, nfft: int | None = None, *, device):
 
 def make_zp_from_power(spec: GraphSpec, power: np.ndarray, nfft: int,
                        padlen: int, settle: int, *, device) -> ZP:
-    """Fast-mode pass from an arbitrary combined real power response."""
-    design.check_fft_plan(nfft, device)
+    """Fast-mode pass from an arbitrary combined real power response: on
+    the staged FFT where ``fft_staged.enabled`` takes ``nfft``."""
+    if fft_staged.enabled(nfft, device):
+        return ZP(nfft=nfft, padlen=padlen, settle=settle, exact=False,
+                  params=[fft_staged.permute_full_response(power, nfft),
+                          fft_staged.plan_params(nfft)], staged=True)
     return ZP(nfft=nfft, padlen=padlen, settle=settle, exact=False,
               params=[power.astype(np.float32)])
 

@@ -7,13 +7,17 @@ Phases, each printing JSON lines:
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build   — compiles the CUDA kernels of ``amw_tpu_torch/csrc`` (nvcc,
              one process per source, all started together);
-3. kernels — each of the six kernels against its plain PyTorch version on
+3. kernels — each of the ten kernels against its plain PyTorch version on
              the card at the shapes of the 180 s batch (16 rows of
              7 938 000 samples; the staged FFT at nfft = 2^23, 8 packed
-             rows, K = 2 and 4 responses), with CUDA-event times (median
-             of 20), the bound and a PyTorch library yardstick; the box
-             and env-gain kernels also at the 5 s batch's shapes (16 rows
-             of 220 500 samples and that length's chunk geometry);
+             rows, K = 2 and 4 responses; kernel 8 also unpacked on one
+             row, kernel 12 at K = 4 on one mono row; the chunked envelope
+             with the transient designer's slow ballistics; the per-row
+             envelope at the 2 s clip's [16, 88 200]), with CUDA-event
+             times (median of 20), the bound and a PyTorch library
+             yardstick; the box and env-gain kernels also at the 5 s
+             batch's shapes (16 rows of 220 500 samples and that length's
+             chunk geometry);
 4. entry   — ``fft_staged.roundtrip_multi`` (K = 2) and
              ``roundtrip_multi_reduce`` (K = 4, the band maps) at [16, 2^23]
              against ``torch.fft`` (rfft → × K → irfft), and a sweep of
@@ -28,7 +32,19 @@ Phases, each printing JSON lines:
              dBFS, <= 0.1 LU; at 180 s for one full and one padded track),
              and the steady-state realtime factor; a profile of the 180 s
              batch (device time by kernel, idle share);
-6. a ``kernels`` line (launches on the 180 s run, error, times, bound).
+6. v2        — the v2 mastering job (``build_v2_job_graph``: the default
+             ``standard`` chain config plus the pro set ``V2_PRO``) three
+             times: 8 stereo 180 s tracks (the last two bucket-padded to
+             150 s and 97.5 s), one mono 180 s track at ``podcast`` (odd
+             rows: the unpacked kernels 8 and 12), and one 2 s stereo clip
+             at ``edm`` (the per-row envelope, the exciter and imager).
+             Each run: launch counts against those derived from the code,
+             output checks, parity with the port's CPU path (<= -90 dBFS,
+             <= 0.1 LU, the graph's before/after loudness within 0.01 LU),
+             the realtime factor; a profile of the 180 s batch;
+7. a ``kernels`` line: each kernel's launches on the path that uses it
+   (the v1 180 s batch for the first six, the v2 runs for kernels 8, 12,
+   2' and 3), error, times, bound.
 
 Any failure raises (non-zero exit).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,8 +63,9 @@ import numpy as np
 import torch
 
 from amw_tpu_torch import GraphSpec
-from amw_tpu_torch.constants import MULTIBAND_CONFIG
-from amw_tpu_torch.models import build_v1_pipeline
+from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
+                                     MULTIBAND_CONFIG, STYLE_CONFIGS)
+from amw_tpu_torch.models import build_v1_pipeline, build_v2_job_graph
 from amw_tpu_torch.ops import _cuda, design, fdfilter, meters, scan
 from amw_tpu_torch.ops import fft_staged as fs
 from amw_tpu_torch.ops.bands import BandMap
@@ -70,6 +87,19 @@ FFT_REDUCE_REL = 1e-5  # the reduce with its band maps, relative
 FFT_RT_ATOL = 2e-5     # a round trip of unit-variance signals, absolute
 PARITY_DBFS = -90.0
 PARITY_LU = 0.1
+METER_LU = 0.01  # the graph's own before/after loudness, GPU vs CPU
+# The v2 job's pro set: every PRE and POST stage the engine runs but the
+# spectral denoiser (frontend/app.js:137-170).
+V2_PRO = {"rumble_enabled": True, "rumble_cutoff": 60.0,
+          "deesser_enabled": True, "transient_attack": 1.3,
+          "transient_sustain": 0.85, "parallel_mix": 0.25,
+          "dynamic_eq_enabled": True}
+# The POST stages run after the normalization and lower the loudness (in
+# the JAX package's job too, which the port matches on the CPU:
+# tests/test_torch_v2_job.py), so the v2 output is held to
+# [target - 2 LU, target + 1 LU].
+V2_LU_BELOW = 2.0
+SHORT_CLIP_S = 2.0
 # the launch counters of the kernels' wrappers, by kernel name
 COUNTERS = {
     "box_smooth_same": fdfilter.box_smooth_cuda,
@@ -78,6 +108,10 @@ COUNTERS = {
     "fft_bccb_multi": fs.bccb_multi_cuda,
     "fft_stage_a_inv_join": fs.inv_join_cuda,
     "fft_reduce_stage_a_packed": fs.reduce_packed_cuda,
+    "fft_bc_cb": fs.bc_cb_cuda,
+    "fft_reduce_stage_a": fs.reduce_cuda,
+    "env_scan": scan.env_scan_cuda,
+    "env_rows": scan.env_rows_cuda,
 }
 
 
@@ -282,7 +316,6 @@ def fft_kernels(dev, g, rows: int, n: int) -> dict:
     nfft = LONG_NFFT
     R2 = rows // 2
     S = nfft // fs.A
-    C = nfft // (fs.A * fs.B)
     lg = 16  # log2(B * C): the B/C stage is one 65536-point DFT per (row, a')
     tabs = fs._device_tables(nfft, dev)
     x = (0.3 * torch.randn(rows, n, generator=g)).to(dev)
@@ -318,12 +351,8 @@ def fft_kernels(dev, g, rows: int, n: int) -> dict:
     # -- kernel 9, B/C stage over K responses; the yardstick computes the
     #    same function: B, T2 and C are one 65536-point DFT along the joint
     #    (b, c) axis, with the permuted responses gathered to natural order
-    # stored (a', b', p) holds k = a' + A * k2 with k2 = b' + B * k3, the
-    # natural index of the joint (b, c) DFT
-    k2 = ((fs._perm(nfft).reshape(fs.A, fs.B * C)
-           - np.arange(fs.A)[:, None]) // fs.A)
-    order = torch.from_numpy(np.argsort(k2, axis=1)).to(dev)
-    xc = torch.complex(Xr, Xi).view(R2, fs.A, fs.B * C)
+    order = yardstick_order(nfft, dev)
+    xc = torch.complex(Xr, Xi).view(R2, fs.A, S)
     ys = {}
     for K in (2, 4):
         a9 = (Xr, Xi, resps[:K], nfft, tabs)
@@ -408,6 +437,145 @@ def fft_kernels(dev, g, rows: int, n: int) -> dict:
     return out
 
 
+def yardstick_order(nfft: int, dev) -> torch.Tensor:
+    """Per a' row, the stored positions in natural order of the joint
+    (b, c) DFT index: stored (a', b', p) holds k = a' + A * k2 with
+    k2 = b' + B * k3."""
+    k2 = ((fs._perm(nfft).reshape(fs.A, nfft // fs.A)
+           - np.arange(fs.A)[:, None]) // fs.A)
+    return torch.from_numpy(np.argsort(k2, axis=1)).to(dev)
+
+
+def phase_new_kernels(dev) -> dict:
+    """The four kernels of the v2 job's path against their plain versions:
+    kernel 8 (one response) on the 180 s batch's 8 packed rows and on one
+    unpacked row at nfft = 2^23; kernel 12 over K = 4 bands of one mono
+    180 s row; the chunked envelope at [16, 7 938 000] with the transient
+    designer's slow ballistics (5 ms / 100 ms); the per-row envelope at the
+    2 s clip's [16, 88 200]."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    nfft = LONG_NFFT
+    n = int(SR * LONG[0])
+    rows = BATCH * 2
+    R2 = rows // 2
+    S = nfft // fs.A
+    lg = 16  # log2(B * C)
+    tabs = fs._device_tables(nfft, dev)
+    out = {}
+
+    # -- kernel 8: stage-A output of the packed 180 s batch, one response
+    x = (0.3 * torch.randn(rows, n, generator=g)).to(dev)
+    Xr, Xi = fs.stage_a_cuda(x[:R2], x[R2:], nfft, False, tabs)
+    h = 0.25 + torch.rand(nfft // 2 + 1, generator=g, dtype=torch.float64)
+    resp = torch.from_numpy(fs.permute_full_response(h.numpy(), nfft)).to(dev)
+    a8 = (Xr, Xi, resp, nfft, tabs)
+    Yr, Yi = fs.bc_cb_cuda(*a8)
+    Pr, Pi = fs.bc_cb_plain(*a8)
+    torch.cuda.synchronize()
+    e = [rel_err(Yr, Pr), rel_err(Yi, Pi)]
+    err, rel = max(v[0] for v in e), max(v[1] for v in e)
+    check(rel <= FFT_REL, f"B/C one-response kernel rel err {rel} > {FFT_REL}")
+    del Pr, Pi, Yr, Yi
+    # unpacked: one real row (a mono track)
+    Ur, Ui = fs.stage_a_cuda(x[:1], None, nfft, False, tabs, real_in=True)
+    u8 = (Ur, Ui, resp, nfft, tabs)
+    got = fs.bc_cb_cuda(*u8)
+    want = fs.bc_cb_plain(*u8)
+    torch.cuda.synchronize()
+    rel_u = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+    check(rel_u <= FFT_REL, f"B/C kernel, one row: rel err {rel_u}")
+    del got, want
+    order = yardstick_order(nfft, dev)
+    xc = torch.complex(Xr, Xi).view(R2, fs.A, S)
+    hn = torch.gather(torch.complex(resp[0], resp[1]).view(fs.A, S), 1, order)
+
+    def lib8():
+        X = torch.fft.fft(xc, dim=-1)
+        return torch.fft.ifft(X * hn, dim=-1, norm="forward")
+
+    out["fft_bc_cb"] = kernel_entry(
+        "fft_bc_cb", "amw_tpu_torch/csrc/fft_bccb.cu",
+        "amw_tpu/ops/fft_pallas.py:658", [R2, nfft], err, rel, FFT_REL,
+        lambda: fs.bc_cb_cuda(*a8), lambda: fs.bc_cb_plain(*a8),
+        (4 * R2 * nfft + 2 * nfft) * 4,
+        R2 * nfft * (5 * lg + 6 + 6 + 5 * lg + 6),
+        ("torch.fft.fft + mul + torch.fft.ifft along the joint (b, c) axis "
+         "of [8, 128, 65536] complex", lib8),
+        max_rel_err_unpacked=rel_u,
+        unpacked_ms=cuda_ms(lambda: fs.bc_cb_cuda(*u8)))
+    del xc, Xr, Xi, Ur, Ui, x, a8, u8
+
+    # -- kernel 12: K = 4 band spectra of one mono 180 s row
+    K = 4
+    xm = (0.3 * torch.randn(1, n, generator=g)).to(dev)
+    H = 0.25 + torch.rand(K, nfft // 2 + 1, generator=g, dtype=torch.float64)
+    resps = torch.from_numpy(np.stack([fs.permute_full_response(hk.numpy(),
+                                                                nfft)
+                                       for hk in H])).to(dev)
+    Mr, Mi = fs.stage_a_cuda(xm, None, nfft, False, tabs, real_in=True)
+    Yr, Yi = fs.bccb_multi_cuda(Mr, Mi, resps, nfft, tabs)
+    del Mr, Mi
+    maps = standard_band_maps()
+    table = fs.band_table(maps, dev)
+    a12 = (Yr, Yi, K, 1, nfft)
+    got = fs.reduce_cuda(*a12, table, tabs)
+    want = fs.reduce_plain(*a12, maps, tabs)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    check(rel <= FFT_REDUCE_REL,
+          f"unpacked reduce kernel rel err {rel} > {FFT_REDUCE_REL}")
+    del got, want
+    yc = torch.complex(Yr, Yi).view(K, fs.A, S)
+    out["fft_reduce_stage_a"] = kernel_entry(
+        "fft_reduce_stage_a", "amw_tpu_torch/csrc/fft_reduce.cu",
+        "amw_tpu/ops/fft_pallas.py:1017", [K, 1, nfft], err, rel,
+        FFT_REDUCE_REL, lambda: fs.reduce_cuda(*a12, table, tabs),
+        lambda: fs.reduce_plain(*a12, maps, tabs),
+        (2 * K * nfft + nfft + 2 * nfft) * 4,
+        K * nfft * (5 * 7 + 6 + 2 + 12),
+        ("torch.fft.ifft(dim=1) of [4, 128, 65536] complex (no twiddle, "
+         "no maps)", lambda: torch.fft.ifft(yc, dim=1)), K=K)
+    del yc, Yr, Yi, xm, resps
+
+    # -- kernel 2': the chunked envelope, transient designer's slow follower
+    att, rel_c = scan.ar_coefs(SR, 0.005, 0.1)
+    v = (0.3 * torch.randn(rows, n, generator=g)).abs().to(dev)
+    W, C, Kc = scan.chunk_geometry(rows, n, scan.warmup_len(att, rel_c))
+    a2 = (v, W, C, Kc, att, rel_c)
+    got = scan.env_scan_cuda(*a2)
+    want = scan.env_scan_plain(*a2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= ENV_ATOL, f"chunked envelope kernel err {err} > {ENV_ATOL}")
+    del got, want
+    # per sample: compare, select, subtract, fused multiply-add
+    out["env_scan"] = kernel_entry(
+        "env_scan", "amw_tpu_torch/csrc/env_scan.cu",
+        "amw_tpu/ops/scan.py:375", [rows, n], err, None, ENV_ATOL,
+        lambda: scan.env_scan_cuda(*a2), lambda: scan.env_scan_plain(*a2),
+        2 * rows * n * 4, rows * n * 5, None, plain_reps=3, W=W, C=C, K=Kc,
+        serial_steps=W + C, ballistics_ms=[5.0, 100.0])
+    del v, a2
+
+    # -- kernel 3: one sequence per row at the 2 s clip's shape
+    ns = int(SR * SHORT_CLIP_S)
+    v = (0.3 * torch.randn(rows, ns, generator=g)).abs().to(dev)
+    got = scan.env_rows_cuda(v, att, rel_c)
+    want = scan.env_rows_plain(v, att, rel_c)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= ENV_ATOL, f"per-row envelope kernel err {err} > {ENV_ATOL}")
+    del got, want
+    out["env_rows"] = kernel_entry(
+        "env_rows", "amw_tpu_torch/csrc/env_scan.cu",
+        "amw_tpu/ops/scan.py:122", [rows, ns], err, None, ENV_ATOL,
+        lambda: scan.env_rows_cuda(v, att, rel_c),
+        lambda: scan.env_rows_plain(v, att, rel_c),
+        2 * rows * ns * 4, rows * ns * 5, None, plain_reps=3,
+        serial_steps=ns, ballistics_ms=[5.0, 100.0])
+    return out
+
+
 def phase_entry(dev) -> None:
     """The staged FFT's entry points against torch.fft on the same inputs:
     at the 180 s batch's [16, 2^23] (K = 2 responses, and the K = 4 bands
@@ -482,6 +650,33 @@ def phase_entry(dev) -> None:
           "plans": sweep})
 
 
+def track_lufs(sig: np.ndarray, nv: np.ndarray) -> np.ndarray:
+    """Integrated loudness of each track of ``sig`` [B, C, n] over its valid
+    length (the port's meter on the CPU, the CPU FFT plan)."""
+    n = sig.shape[-1]
+    nfft = design.next_fft_size(n + meters.k_weight_settle(SR))
+    Hk = torch.from_numpy(meters.k_weight_response(SR, nfft))
+    return meters.integrated_lufs(
+        torch.as_tensor(sig), Hk, nfft, meters.plan_blocks(SR, n),
+        n_valid=torch.as_tensor(nv)).numpy()
+
+
+def make_batch(dur: float, valid_s, batch: int, channels: int,
+               seed0: int = 0):
+    """``batch`` tracks of ``dur`` s (``make_track``, first ``channels``),
+    the last ``len(valid_s)`` zero past their valid seconds, and the valid
+    lengths."""
+    n = int(SR * dur)
+    xb = np.stack([make_track(SR, dur, seed=seed0 + i)[:channels]
+                   for i in range(batch)])
+    nv = np.full(batch, n, np.int32)
+    if valid_s:
+        nv[-len(valid_s):] = [int(v * SR) for v in valid_s]
+    for i in range(batch):
+        xb[i, :, nv[i]:] = 0.0
+    return xb, nv
+
+
 def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
                 reps: int = 10):
     """Master 8 stereo tracks of ``dur`` s (the last two bucket-padded to
@@ -491,11 +686,7 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
     launch counts and a steady-state step for the profile."""
     n = int(SR * dur)
     t0 = time.perf_counter()
-    xb = np.stack([make_track(SR, dur, seed=i) for i in range(BATCH)])
-    nv = np.full(BATCH, n, np.int32)
-    nv[-2:] = [int(v * SR) for v in valid_s]
-    for i in range(BATCH):
-        xb[i, :, nv[i]:] = 0.0
+    xb, nv = make_batch(dur, valid_s, BATCH, 2)
     data_s = time.perf_counter() - t0
     spec = GraphSpec(sr=SR, n=n, channels=2)
 
@@ -527,15 +718,8 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
         check(bool(np.all(np.isfinite(y_np))), "non-finite output")
         check(float(np.max(np.abs(y_np))) <= 1.0, "output exceeds full scale")
 
-        def lufs(sig, idx):
-            nfft = design.next_fft_size(n + meters.k_weight_settle(SR))
-            Hk = torch.from_numpy(meters.k_weight_response(SR, nfft))
-            return meters.integrated_lufs(
-                torch.as_tensor(sig), Hk, nfft, meters.plan_blocks(SR, n),
-                n_valid=torch.as_tensor(nv[idx])).numpy()
-
         idx = list(range(BATCH)) if cpu_tracks is None else list(cpu_tracks)
-        l_gpu = lufs(y_np, list(range(BATCH)))
+        l_gpu = track_lufs(y_np, nv)
         check(bool(np.all(np.abs(l_gpu - TARGET_LUFS) <= 1.0)),
               f"loudness {l_gpu.tolist()} not within 1 LU of {TARGET_LUFS}")
 
@@ -549,7 +733,7 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
         del p_cpu, fn_cpu
         err = float(np.max(np.abs(y_np[idx] - y_cpu)))
         err_db = 20 * np.log10(max(err, 1e-30))
-        d_lu = float(np.max(np.abs(l_gpu[idx] - lufs(y_cpu, idx))))
+        d_lu = float(np.max(np.abs(l_gpu[idx] - track_lufs(y_cpu, nv[idx]))))
         check(err_db <= PARITY_DBFS, f"GPU vs CPU max error {err_db:.1f} dBFS")
         check(d_lu <= PARITY_LU, f"GPU vs CPU loudness delta {d_lu} LU")
 
@@ -575,7 +759,143 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
     return launches, (lambda: fn(x_d, params, nv_d)), wall
 
 
-def phase_profile(step, wall_ms: float, reps: int = 3) -> None:
+def job_expected(n: int, rows: int, style: str) -> dict:
+    """Each kernel's launches on one call of the v2 job with ``V2_PRO``
+    over ``rows`` signal rows (tracks x channels) of ``n`` samples, as the
+    code reads (amw_tpu_torch/models/v2_job.py and the ops it builds)."""
+    e = {name: 0 for name in COUNTERS}
+    # the de-esser: envelope -> gain, box (scan.deesser_gain_combine)
+    e["env_gain"] = e["box_smooth_same"] = 1
+    # the envelope followers: the transient designer's fast and slow, one
+    # per dynamic-EQ band; routed by scan.short_route as in the JAX package
+    ballistics = [(0.0005, 0.005), (0.005, 0.1)] + [
+        (b["attack_ms"] / 1000.0, b["release_ms"] / 1000.0)
+        for b in DYNAMIC_EQ_MASTERING_BANDS]
+    for att_s, rel_s in ballistics:
+        a, r = scan.ar_coefs(SR, att_s, rel_s)
+        short = scan.short_route(n, scan.warmup_len(a, r))
+        e["env_rows" if short else "env_scan"] += 1
+    if fs.plan_ok(design.tpu_fft_plan(n)):  # the staged FFT, from ~5.8 s
+        packed = rows % 2 == 0
+        # fast zero-phase passes (zphase.ZP on the staged FFT ->
+        # fft_staged.apply_response): rumble, the de-esser's sidechain, one
+        # per dynamic-EQ band, the exciter's high pass where the style
+        # enables it
+        passes = 2 + len(DYNAMIC_EQ_MASTERING_BANDS) + int(
+            STYLE_CONFIGS[style]["exciter_db"] >= 0.05)
+        e["fft_bc_cb"] = passes
+        e["fft_stage_a"] = passes * (1 if packed else 2)
+        e["fft_stage_a_inv_join"] = passes if packed else 0
+        # the fused sites: target_curve+dynamics (roundtrip_multi_reduce)
+        # and normalize+final balance+style EQ (roundtrip_multi)
+        e["fft_bccb_multi"] = 2
+        e["fft_stage_a"] += 2 if packed else 3
+        e["fft_stage_a_inv_join"] += 1 if packed else 0
+        e["fft_reduce_stage_a_packed" if packed
+          else "fft_reduce_stage_a"] = 1
+    return e
+
+
+def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
+             channels: int, style: str, cpu_tracks, reps: int = 5):
+    """Master ``batch`` tracks of ``dur`` s through the v2 job (default
+    chain config at ``style`` and its target loudness, ``V2_PRO``) on the
+    card: launch counts against :func:`job_expected`, output checks,
+    parity of ``cpu_tracks`` with the port's CPU path, the steady-state
+    realtime factor.  Returns the launch counts, a steady-state step and
+    its wall time."""
+    n = int(SR * dur)
+    target = STYLE_CONFIGS[style]["lufs"]
+    t0 = time.perf_counter()
+    xb, nv = make_batch(dur, valid_s, batch, channels, seed0=10)
+    data_s = time.perf_counter() - t0
+    spec = GraphSpec(sr=SR, n=n, channels=channels)
+    t0 = time.perf_counter()
+    params, fn, names = build_v2_job_graph(spec, None, V2_PRO, target, style,
+                                           device=dev)
+    build_s = time.perf_counter() - t0
+    x_d = torch.from_numpy(xb).to(dev)
+    nv_d = torch.from_numpy(nv).to(dev)
+    expect = job_expected(n, batch * channels, style)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(x_d, params, nv_d)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == expect, f"{label}: launches {launches}, expected "
+              f"{expect}")
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        y = res.pop("out")
+        check(y.shape == xb.shape, f"{label}: output shape {y.shape}")
+        check(bool(np.all(np.isfinite(y))) and bool(np.all(res["finite"])),
+              f"{label}: non-finite output")
+        check(float(np.max(np.abs(y))) <= 1.0,
+              f"{label}: output exceeds full scale")
+        check(bool(np.all(res["peak"] == np.abs(y).reshape(batch, -1)
+                          .max(axis=1))), f"{label}: peak stat")
+        after = res["after_lufs"]
+        check(bool(np.all((after >= target - V2_LU_BELOW)
+                          & (after <= target + 1.0))),
+              f"{label}: loudness {after.tolist()} outside [{target} - "
+              f"{V2_LU_BELOW}, {target} + 1] LU")
+        for i in range(batch):
+            check(bool(np.all(y[i, :, nv[i]:] == 0.0)),
+                  f"{label}: padded tail of track {i} not zero")
+
+        # the port's plain path on the CPU, same input
+        idx = list(cpu_tracks)
+        p_cpu, fn_cpu, _ = build_v2_job_graph(spec, None, V2_PRO, target,
+                                              style, device="cpu")
+        t0 = time.perf_counter()
+        res_c = fn_cpu(torch.from_numpy(xb[idx]), p_cpu,
+                       torch.from_numpy(nv[idx]))
+        cpu_s = time.perf_counter() - t0
+        del p_cpu, fn_cpu
+        res_c = {k: v.numpy() for k, v in res_c.items()}
+        err = float(np.max(np.abs(y[idx] - res_c["out"])))
+        err_db = 20 * np.log10(max(err, 1e-30))
+        d_lu = float(np.max(np.abs(track_lufs(y[idx], nv[idx])
+                                   - track_lufs(res_c["out"], nv[idx]))))
+        d_meter = max(float(np.max(np.abs(res[k][idx] - res_c[k])))
+                      for k in ("before_lufs", "after_lufs"))
+        check(err_db <= PARITY_DBFS,
+              f"{label}: GPU vs CPU max error {err_db:.1f} dBFS")
+        check(d_lu <= PARITY_LU, f"{label}: GPU vs CPU loudness delta {d_lu}")
+        check(d_meter <= METER_LU,
+              f"{label}: GPU vs CPU before/after loudness delta {d_meter}")
+
+        for _ in range(2):
+            fn(x_d, params, nv_d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x_d, params, nv_d)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+
+    emit({"phase": "v2", "run": label, "stages": names, "style": style,
+          "pro": V2_PRO, "batch": batch, "channels": channels,
+          "track_s": dur, "n_valid": nv.tolist(), "data_s": data_s,
+          "params_build_s": build_s, "first_batch_s": first_s,
+          "launches": launches, "expected_launches": expect,
+          "peak_device_gb": peak_gb, "target_lufs": target,
+          "before_lufs": res["before_lufs"].tolist(),
+          "after_lufs": after.tolist(), "peak": res["peak"].tolist(),
+          "cpu_parity_tracks": idx, "max_err_vs_cpu": err,
+          "max_err_vs_cpu_dbfs": err_db, "max_lu_delta_vs_cpu": d_lu,
+          "max_meter_delta_vs_cpu": d_meter, "cpu_plain_s": cpu_s,
+          "wall_s_per_batch": wall,
+          "realtime_factor": batch * dur / wall})
+    return launches, (lambda: fn(x_d, params, nv_d)), wall, names
+
+
+def phase_profile(step, wall_ms: float, label: str, reps: int = 3) -> None:
     """Device time by CUDA kernel over ``reps`` steady-state batches
     (torch.profiler, CUPTI), and the device's idle share of the
     unprofiled wall time ``wall_ms`` per batch."""
@@ -598,7 +918,7 @@ def phase_profile(step, wall_ms: float, reps: int = 3) -> None:
         rows.append((evt.key, dev_us / 1e3 / reps, evt.count / reps))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    emit({"phase": "profile", "wall_ms_per_batch": wall_ms,
+    emit({"phase": "profile", "run": label, "wall_ms_per_batch": wall_ms,
           "device_ms_per_batch": busy if rows else None,
           "device_idle_share": 1.0 - busy / wall_ms if rows else None,
           "device_events": len(rows),
@@ -611,22 +931,45 @@ def main() -> None:
     dev = torch.device("cuda")
     phase_build()
     kernels = phase_kernels(dev)
+    kernels.update(phase_new_kernels(dev))
     phase_entry(dev)
-    fft_none = {name: 0 for name in COUNTERS if name.startswith("fft_")}
+
+    # v1: the 5 s batch runs no FFT kernel, the 180 s batch the staged FFT;
+    # neither runs an envelope follower or a one-response pass
+    idle = {name: 0 for name in COUNTERS}
     phase_slice(dev, *SHORT,
-                expect={"box_smooth_same": 1, "env_gain": 1, **fft_none})
-    launches, step, wall = phase_slice(
+                expect={**idle, "box_smooth_same": 1, "env_gain": 1})
+    v1, step, wall = phase_slice(
         dev, *LONG, cpu_tracks=(0, BATCH - 1), reps=5,
-        expect={"box_smooth_same": 1, "env_gain": 1, "fft_stage_a": 3,
-                "fft_bccb_multi": 3, "fft_stage_a_inv_join": 2,
-                "fft_reduce_stage_a_packed": 1})
-    phase_profile(step, wall * 1e3, reps=2)
+        expect={**idle, "box_smooth_same": 1, "env_gain": 1,
+                "fft_stage_a": 3, "fft_bccb_multi": 3,
+                "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
+    phase_profile(step, wall * 1e3, "v1_180s", reps=2)
+
+    # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip
+    v2, step, wall, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
+                                 "standard", cpu_tracks=(0, BATCH - 1))
+    phase_profile(step, wall * 1e3, "v2_180s", reps=2)
+    del step
+    mono, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
+                             "podcast", cpu_tracks=(0,), reps=3)
+    clip, _, _, names = phase_v2(dev, "v2_clip_2s", SHORT_CLIP_S, (), 1, 2,
+                                 "edm", cpu_tracks=(0,), reps=10)
+    check({"chain:exciter", "chain:imager"} <= set(names),
+          f"2 s edm clip: no exciter or imager in {names}")
+
+    # each kernel's launches on the path that uses it
+    paths = {name: ("v1_180s", v1) for name in kernels}
+    paths.update(fft_bc_cb=("v2_180s", v2), env_scan=("v2_180s", v2),
+                 fft_reduce_stage_a=("v2_mono_180s", mono),
+                 env_rows=("v2_clip_2s", clip))
     for name, entry in kernels.items():
-        check(launches[name] > 0, f"kernel {name} not launched on the 180 s "
-              "batch")
+        label, launches = paths[name]
+        check(launches[name] > 0, f"kernel {name} not launched on {label}")
         entry["launches"] = launches[name]
+        entry["path"] = label
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     emit({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

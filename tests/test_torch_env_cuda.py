@@ -1,0 +1,83 @@
+"""The envelope kernels against their plain PyTorch versions on the card.
+
+GPU only (``cuda`` marker; every test skips without a card).  The file
+imports no JAX, so it runs on a machine with the card and no JAX package:
+
+    python -m pytest --noconftest -q tests/test_torch_env_cuda.py
+
+Bar: absolute 1e-5 on unit-scale input (every chunk equals the exact
+recurrence to eps = 1e-8; kernel and plain version sum in f32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from amw_tpu_torch.ops import scan
+
+ENV_ATOL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _v(rows, n, seed):
+    g = np.random.default_rng(seed)
+    env = 0.5 + 0.5 * np.abs(np.sin(np.arange(n) / 3000.0))
+    return torch.from_numpy(np.abs(g.standard_normal((rows, n)) * env)
+                            .astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,ballistics", [
+    (16, 300_000, (0.005, 0.1)),   # the transient designer's slow follower
+    (4, 100_003, (0.0005, 0.005)),  # its fast follower
+    (2, 90_000, (0.002, 0.04)),     # one chunk, no warm-up
+])
+def test_env_scan_cuda_matches_plain(cuda_device, rows, n, ballistics):
+    att, rel = scan.ar_coefs(44100, *ballistics)
+    v = _v(rows, n, 1).to(cuda_device)
+    W, C, K = scan.chunk_geometry(rows, n, scan.warmup_len(att, rel))
+    before = scan.env_scan_cuda.launches
+    got = scan.env_scan_cuda(v, W, C, K, att, rel)
+    torch.cuda.synchronize()
+    assert scan.env_scan_cuda.launches == before + 1
+    want = scan.env_scan_plain(v, W, C, K, att, rel)
+    assert float((got - want).abs().max()) <= ENV_ATOL
+    exact = scan.env_rows_plain(v, att, rel)
+    assert float((got - exact).abs().max()) <= ENV_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(16, 88_200), (33, 5_000), (1, 129)])
+def test_env_rows_cuda_matches_plain(cuda_device, rows, n):
+    att, rel = scan.ar_coefs(44100, 0.005, 0.1)
+    v = _v(rows, n, 2).to(cuda_device)
+    before = scan.env_rows_cuda.launches
+    got = scan.env_rows_cuda(v, att, rel)
+    torch.cuda.synchronize()
+    assert scan.env_rows_cuda.launches == before + 1
+    want = scan.env_rows_plain(v, att, rel)
+    assert float((got - want).abs().max()) <= ENV_ATOL
+    assert torch.equal(got[:, 0], v[:, 0])  # env[0] = v[0]
+
+
+@pytest.mark.cuda
+def test_envelope_follower_routes_on_cuda(cuda_device):
+    """Short signals launch the per-row kernel, long ones the chunked one,
+    and both agree with the CPU path."""
+    att, rel = scan.ar_coefs(44100, 0.005, 0.1)
+    w0 = scan.warmup_len(att, rel)
+    for n, counter in ((2 * w0, scan.env_rows_cuda),
+                       (2 * w0 + 1, scan.env_scan_cuda)):
+        v = _v(2, n, 3)
+        before = counter.launches
+        got = scan.envelope_follower(v.to(cuda_device), att, rel)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        want = scan.envelope_follower(v, att, rel)
+        assert float((got.cpu() - want).abs().max()) <= ENV_ATOL

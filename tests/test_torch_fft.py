@@ -165,6 +165,51 @@ def test_reduce_packed_matches_jax(nfft):
     assert _rel(got, want) < REL_REDUCE
 
 
+@pytest.mark.parametrize("nfft", SIZES)
+def test_bc_cb_matches_jax(nfft):
+    xr, xi = _planes((2, nfft), 30)
+    _, resps = _resps(nfft, 1, 31)
+    wr, wi = jfp._stage_bc_cb(jnp.asarray(xr), jnp.asarray(xi), nfft,
+                              jfp.plan_params(nfft), jnp.asarray(resps[0]),
+                              interpret=True)
+    gr, gi = tfs._stage_bc_cb(_t(xr), _t(xi), _t(resps[0]), nfft,
+                              _tables(nfft))
+    assert gr.shape == (2, nfft)
+    assert _rel(gr, wr) < REL_STAGE
+    assert _rel(gi, wi) < REL_STAGE
+
+
+def test_reduce_unpacked_matches_jax():
+    """The unpacked reduce (odd row counts) with one band map per
+    compressor branch."""
+    nfft, K, R = 1 << 19, 4, 1
+    yr, yi = _planes((K * R, nfft), 32, 0.3)
+    maps = [_jax_map(*b) for b in BANDS]
+    want = jfp._reduce_stage_a(jnp.asarray(yr), jnp.asarray(yi), K, R, nfft,
+                               maps, jfp.plan_params(nfft), interpret=True)
+    got = tfs._reduce_stage_a(_t(yr), _t(yi), K, R, nfft,
+                              [BandMap(*b) for b in BANDS], _tables(nfft))
+    assert got.shape == (R, nfft)
+    assert _rel(got, want) < REL_REDUCE
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_apply_response_matches_jax(rows):
+    """Packed (even rows) and unpacked (odd rows), default and cut
+    output length."""
+    nfft = 1 << 19
+    n = nfft - 7000
+    x = (0.3 * np.random.default_rng(33).standard_normal((rows, 1, n))
+         ).astype(np.float32)
+    _, resps = _resps(nfft, 1, 34)
+    for n_out in (None, n):
+        want = jfp.apply_response(jnp.asarray(x), jnp.asarray(resps[0]), nfft,
+                                  n_out=n_out, interpret=True)
+        got = tfs.apply_response(_t(x), _t(resps[0]), nfft, n_out=n_out)
+        assert got.shape == (rows, 1, nfft if n_out is None else n)
+        assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < ABS_RT
+
+
 @pytest.mark.parametrize("rows", [1, 2, 3])
 def test_public_functions_match_jax(rows):
     """Packed (even rows) and unpacked (odd rows) routes at the 2^19 plan,

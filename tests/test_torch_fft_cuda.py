@@ -120,10 +120,61 @@ def test_roundtrip_multi_cuda_matches_torch_fft(cuda_device, nfft, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+def test_bc_cb_cuda_matches_plain(cuda_device, nfft):
+    """Kernel 8 (one response) against its plain version."""
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    xr, xi = (p.to(dev) for p in _planes((3, nfft), 16, 0.3))
+    resp = _resps(nfft, 1, 17)[1][0].to(dev)
+    before = tfs.bc_cb_cuda.launches
+    gr, gi = tfs._stage_bc_cb(xr, xi, resp, nfft, tabs)
+    torch.cuda.synchronize()
+    assert tfs.bc_cb_cuda.launches == before + 1
+    wr, wi = tfs.bc_cb_plain(xr, xi, resp, nfft, tabs)
+    assert _rel(gr, wr) < REL_STAGE
+    assert _rel(gi, wi) < REL_STAGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+@pytest.mark.parametrize("rows", [2, 3])
+def test_apply_response_cuda_matches_torch_fft(cuda_device, nfft, rows):
+    """``apply_response``, packed (even rows) and unpacked (odd rows)."""
+    dev = cuda_device
+    n = nfft - 4321
+    x = _planes((rows, n), 18)[0].to(dev)
+    H, resps = _resps(nfft, 1, 19)
+    y = tfs.apply_response(x, resps[0].to(dev), nfft, n_out=n)
+    Hk = torch.from_numpy(H[0].astype(np.float32)).to(dev)
+    want = torch.fft.irfft(torch.fft.rfft(x, n=nfft, dim=-1) * Hk, n=nfft,
+                           dim=-1)[:, :n]
+    assert y.shape == (rows, n)
+    assert float((y - want).abs().max()) < ABS_RT
+
+
+@pytest.mark.cuda
 def test_unpacked_reduce_raises_on_cuda(cuda_device):
+    """Odd row counts take the unpacked reduce (kernel 12): it matches its
+    plain version, and ``roundtrip_multi_reduce`` over 3 rows matches
+    ``torch.fft`` with the maps applied per band."""
     nfft = 1 << 19
-    x = torch.zeros(3, nfft, device=cuda_device)
-    resps = torch.zeros(4, 2, nfft, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="kernel 12"):
-        tfs.roundtrip_multi_reduce(x, resps, nfft, nfft,
-                                   [BandMap(*b) for b in BANDS])
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    maps = [BandMap(*b) for b in BANDS]
+    yr, yi = (p.to(dev) for p in _planes((4 * 3, nfft), 20, 0.3))
+    before = tfs.reduce_cuda.launches
+    got = tfs._reduce_stage_a(yr, yi, 4, 3, nfft, maps, tabs)
+    torch.cuda.synchronize()
+    assert tfs.reduce_cuda.launches == before + 1
+    want = tfs.reduce_plain(yr, yi, 4, 3, nfft, maps, tabs)
+    assert _rel(got, want) < REL_REDUCE
+    n = nfft - 999
+    x = _planes((3, n), 21)[0].to(dev)
+    H, resps = _resps(nfft, 4, 22)
+    got = tfs.roundtrip_multi_reduce(x, resps.to(dev), nfft, n, maps)
+    X = torch.fft.rfft(x, n=nfft, dim=-1)
+    want = sum(maps[k](torch.fft.irfft(
+        X * torch.from_numpy(H[k].astype(np.float32)).to(dev), n=nfft,
+        dim=-1)[:, :n]) for k in range(4))
+    assert _rel(got, want) < REL_REDUCE

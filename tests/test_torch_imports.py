@@ -71,3 +71,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fs.bccb_multi_cuda(y, y, torch.zeros(1, 2, nfft), nfft, tabs)
     with pytest.raises(ValueError):
         fs.reduce_packed_cuda(y, y, 1, 2, nfft, torch.zeros(1, 8), tabs)
+
+
+def test_v2_modules_are_checked():
+    """The no-JAX check above covers the v2 job's modules."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/chain.py", "models/v2_job.py", "ops/exciter.py",
+                "ops/stereo.py", "ops/dynamics.py", "ops/scan.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+
+
+def test_v2_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from amw_tpu_torch import GraphSpec
+    from amw_tpu_torch.models import build_v2_job_graph, compile_chain
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = GraphSpec(sr=44100, n=44100, channels=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_v2_job_graph(spec, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compile_chain(spec)
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    from amw_tpu_torch.ops import scan
+    from amw_tpu_torch.ops import fft_staged as fs
+
+    x = torch.zeros(2, 100)
+    with pytest.raises(ValueError):
+        scan.env_scan_cuda(x, 0, 100, 1, 0.9, 0.99)
+    with pytest.raises(ValueError):
+        scan.env_rows_cuda(x, 0.9, 0.99)
+    nfft = 1 << 19
+    y = torch.zeros(2, nfft)
+    tabs = fs._device_tables(nfft, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        fs.bc_cb_cuda(y, y, torch.zeros(2, nfft), nfft, tabs)
+    with pytest.raises(ValueError):
+        fs.reduce_cuda(y, y, 1, 2, nfft, torch.zeros(1, 8), tabs)

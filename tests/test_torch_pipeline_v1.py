@@ -8,6 +8,7 @@ the CPU, plain versions of its kernels) against the JAX package's Pallas
 FFT (forced, interpret mode).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -121,9 +122,7 @@ def test_short_clip_unfused_path_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     {"denoise_strength": 0.5},
-    {"transient_attack": 1.5},
     {"reference_env": np.ones(8, np.float32)},
-    {"style": "edm"},          # exciter, imager, parallel compression
     {"compressor": "envelope"},
 ])
 def test_unported_stage_raises(kw):
@@ -132,12 +131,31 @@ def test_unported_stage_raises(kw):
                           **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    {"transient_attack": 1.5},
+    {"style": "edm", "target_lufs": -9.0},  # exciter, imager, parallel
+])
+def test_optional_stage_matches_jax(kw):
+    n = int(1.5 * SR)
+    jp, jfn, jnames = jax_build(JSpec(sr=SR, n=n, channels=2), **kw)
+    _, tfn, tnames = build_v1_pipeline(GraphSpec(sr=SR, n=n, channels=2),
+                                       device="cpu", **kw)
+    assert tnames == jnames
+    x = _track(1.5, 9)
+    want = np.asarray(jfn(x, jax.device_put(jp)))
+    got = tfn(torch.from_numpy(x), params_from_jax(jp, device="cpu")).numpy()
+    assert _db(float(np.max(np.abs(got - want)))) <= BAR_DBFS
+    assert abs(refimpl.integrated_lufs(got, SR)
+               - refimpl.integrated_lufs(want, SR)) <= BAR_LU
+
+
 def test_fft_guard_refuses_pallas_plans_on_cuda():
-    """On CUDA the three fused sites take the TPU plan on the staged FFT
-    (2^21 at 30 s, where the CPU rule gives 3·2^19), and a standalone pass
-    at a plan the JAX package runs through its Pallas ``apply_response``
-    still raises.  The builders compute host-side params only, so no GPU
-    is needed."""
+    """On CUDA the three fused sites and every fast zero-phase pass take the
+    TPU plan on the staged FFT (2^21 at 30 s, where the CPU rule gives
+    3·2^19): ``make_zp`` and ``make_zp_from_power`` carry the permuted
+    response and the plan tables, as the JAX package's Pallas route does;
+    exact two-pass passes keep ``torch.fft``.  The builders compute
+    host-side params only, so no GPU is needed."""
     cuda = torch.device("cuda")
     spec5 = GraphSpec(sr=SR, n=5 * SR, channels=2)
     p5 = fused.build_target_then_deesser(spec5, device=cuda)[0]
@@ -160,12 +178,20 @@ def test_fft_guard_refuses_pallas_plans_on_cuda():
     assert p_nf[0].shape == (2, 2, 2 ** 21)
     assert p_nf[0].shape[-1] == fft_staged.site_plan(spec30.n, cuda)[0]
     assert fft_staged.site_plan(spec30.n, "cpu") == (3 * 2 ** 19, False)
-    with pytest.raises(NotImplementedError, match="kernel 8"):
-        zphase.make_zp(spec30, [design.butter_ba_norm(2, 0.01, "high")],
-                       device=cuda)
-    with pytest.raises(NotImplementedError, match="kernel 8"):
-        zphase.make_zp_from_power(spec30, np.ones(2 ** 20 + 1), 2 ** 21,
-                                  6, 100, device=cuda)
+    ba = design.butter_ba_norm(2, 0.01, "high")
+    zp = zphase.make_zp(dataclasses.replace(spec30, exact=False), [ba],
+                        device=cuda)
+    assert zp.staged and zp.nfft == 2 ** 21
+    assert zp.params[0].shape == (2, 2 ** 21) and len(zp.params[1]) == 8
+    hz = zphase.make_zp(spec30, [ba], device=cuda)  # hybrid: fast + edges
+    assert hz.fast.staged and not hz.small.staged
+    assert not zphase.make_zp(spec30, [ba], device="cpu").fast.staged
+    zp = zphase.make_zp_from_power(spec30, np.ones(2 ** 20 + 1), 2 ** 21, 6,
+                                   100, device=cuda)
+    assert zp.staged and zp.params[0].shape == (2, 2 ** 21)
+    exact = zphase.make_zp(dataclasses.replace(spec30, hybrid=False), [ba],
+                           device=cuda)
+    assert exact.exact and not exact.staged and exact.nfft == 2 ** 21
     assert design.tpu_fft_plan(1_500_000) == 2 ** 21
     assert design.next_fft_size(1_500_000) == 3 * 2 ** 19
 

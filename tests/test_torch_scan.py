@@ -119,15 +119,42 @@ def test_env_gain_cuda_kernel_matches_plain(cuda_device):
     assert float((got - want).abs().max()) <= 1e-5
 
 
-def test_envelope_follower_raises_on_cuda_tensors():
-    """No hidden fallback: the JAX package runs Pallas kernels here, which
-    have no Hopper port yet, so a CUDA tensor raises instead of taking the
-    plain loop.  (A stand-in object: the check needs no GPU.)"""
+def test_envelope_follower_raises_on_cuda_tensors(monkeypatch):
+    """No hidden fallback: a CUDA tensor goes to a kernel wrapper (the
+    JAX package's route: one sequence per row for short signals, the
+    chunked kernel over the port's own geometry otherwise), never to the
+    plain loop.  (A stand-in tensor and recording wrappers: the check needs
+    no GPU.)"""
+    calls = []
 
     class _CudaTensor:
         is_cuda = True
         device = torch.device("cuda")
-        shape = (2, 1000)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscan.envelope_follower(_CudaTensor(), 0.9, 0.99)
+        def __init__(self, n):
+            self.shape = (2, n)
+
+        def reshape(self, *shape):
+            return self
+
+        def contiguous(self):
+            return self
+
+    def record(name):
+        def wrapper(v2, *args):
+            calls.append((name, args))
+            return torch.zeros(v2.shape)
+        return wrapper
+
+    monkeypatch.setattr(tscan, "env_rows_cuda", record("rows"))
+    monkeypatch.setattr(tscan, "env_scan_cuda", record("scan"))
+    for name in ("env_rows_plain", "env_scan_plain", "_env_chunks"):
+        monkeypatch.setattr(tscan, name, None)
+    att, rel = tscan.ar_coefs(44100, 0.005, 0.1)
+    w0 = tscan.warmup_len(att, rel)
+    out = tscan.envelope_follower(_CudaTensor(2 * w0), att, rel)
+    assert out.shape == (2, 2 * w0)
+    n = 2 * w0 + 1
+    tscan.envelope_follower(_CudaTensor(n), att, rel)
+    assert calls == [("rows", (att, rel)),
+                     ("scan", (*tscan.chunk_geometry(2, n, w0), att, rel))]
