@@ -14,13 +14,15 @@ import torch
 
 
 def to_device(params, device, _seen=None):
-    """The same nesting as ``params`` (lists, tuples, arrays, tensors and
-    scalars), with every array as a tensor on ``device``.  An array object
-    that occurs more than once (the plan tables that several fused sites
-    share) becomes one tensor."""
+    """The same nesting as ``params`` (lists, tuples, arrays, tensors,
+    scalars and ``None``), with every array as a tensor on ``device``.  An
+    array object that occurs more than once (the plan tables that several
+    fused sites share) becomes one tensor."""
     seen = {} if _seen is None else _seen
     if isinstance(params, (list, tuple)):
         return [to_device(p, device, seen) for p in params]
+    if params is None:  # the analysis graph's (packed response, None)
+        return None
     key = id(params)
     if key not in seen:
         if isinstance(params, torch.Tensor):
@@ -37,11 +39,15 @@ def params_from_jax(params, device=None):
     """The port's params from the nested list that a JAX package graph
     builder returns (numpy arrays; on its Pallas route also the device
     arrays of ``fft_pallas.plan_params``), as tensors on ``device``
-    (default ``cuda``) in the same nesting.  Two builders are mirrored:
-    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` (one list per stage)
-    and ``amw_tpu.models.v2_job.build_v2_job_graph`` (one list per stage,
+    (default ``cuda``) in the same nesting.  Three builders are mirrored:
+    ``amw_tpu.models.pipeline_v1.build_v1_pipeline`` (one list per stage),
+    ``amw_tpu.models.v2_job.build_v2_job_graph`` (one list per stage,
     the chain's modules among them, then ``[[Hk]]``: the K-weighting
-    response of the before/after loudness meter)."""
+    response of the before/after loudness meter; a linear-phase target
+    curve's params are ``[ir]``, its FIR taps), and the ``Hk`` pair of
+    ``amw_tpu.models.analyze._analysis_graph``: ``(permuted response,
+    plan tables)`` on the Pallas route, ``(packed response, None)``
+    elsewhere, which ``models.analyze``'s graph takes as its ``Hk``."""
     from . import resolve_device
 
     return to_device(params, resolve_device(device))

@@ -25,8 +25,12 @@
 //
 //   1. col_dft128_kernel (fft128.cuh): forward B and T2, x -> scratch z;
 //   2. cstage_multi_kernel: per C-row of z, the forward C-DFT, then for
-//      each response the product and the inverse C-DFT, into out[k];
+//      each response the product and the inverse C-DFT, into out[k]
+//      (fft_cstage.cuh: c_forward, c_inverse_responses);
 //   3. col_dft128_kernel: conj T2 and inverse B, in place on out.
+//
+// The split stages (kernels 6, 7, 10 in fft_split.cu) are passes 1-2 and
+// 2-3 of the same design with the spectrum stored in between.
 //
 // Bound on an H100: device-memory bytes.  The fused bound (x read once, K
 // responses read once, K outputs written once) at the 180 s slice's shapes
@@ -39,94 +43,23 @@
 // C/2 twiddles), so the spectrum is read from z once and each response and
 // output plane streams once; a cluster-fused design that keeps the tile on
 // chip is later work.
-#include "fft128.cuh"
+#include "fft_cstage.cuh"
 
 using namespace amw_fft;
 
 namespace {
 
-constexpr int kCElems = 2048;  // complex points of z per block of pass 2
-constexpr int kMaxC = 1024;
-
-// In place over each C-point row of re/im [kCElems]: bit-reversed in,
-// natural order out; `conj_tw` runs the inverse (conjugate) transform.
-__device__ __forceinline__ void fft_rows(float* re, float* im,
-                                         const float* twr, const float* twi,
-                                         int C, int logC, bool conj_tw) {
-  for (int s = 0; s < logC; ++s) {
-    __syncthreads();
-    const int half = 1 << s;
-    const int step = C >> (s + 1);
-    for (int b = threadIdx.x; b < kCElems / 2; b += kThreads) {
-      const int row = b >> (logC - 1);
-      const int bb = b & ((C >> 1) - 1);
-      const int j = bb & (half - 1);
-      const int i0 = (row << logC) + ((bb - j) << 1) + j;
-      const int i1 = i0 + half;
-      const float wr = twr[j * step];
-      const float wi = conj_tw ? -twi[j * step] : twi[j * step];
-      const float vr = re[i1], vi = im[i1];
-      const float xr = vr * wr - vi * wi;
-      const float xi = vr * wi + vi * wr;
-      const float ur = re[i0], ui = im[i0];
-      re[i0] = ur + xr;
-      im[i0] = ui + xi;
-      re[i1] = ur - xr;
-      im[i1] = ui - xi;
-    }
-  }
-  __syncthreads();
-}
-
-// Block: the kCElems consecutive points of z from blockIdx.x * kCElems,
-// i.e. kCElems / C whole C-rows of one signal row (kCElems divides nfft).
 __global__ void __launch_bounds__(kThreads)
 cstage_multi_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                     const float* __restrict__ resps,
                     float* __restrict__ out_r, float* __restrict__ out_i,
                     long long plane, long long nfft, int C, int logC, int K) {
-  __shared__ float sr[kCElems], si[kCElems];  // spectrum, natural order
-  __shared__ float wr[kCElems], wi[kCElems];  // one response's product
-  __shared__ float twr[kMaxC / 2], twi[kMaxC / 2];
+  __shared__ CTile t;
   const long long base = static_cast<long long>(blockIdx.x) * kCElems;
-  for (int j = threadIdx.x; j < C / 2; j += kThreads) {
-    float s, c;
-    sincospif(-static_cast<float>(j) / (C / 2), &s, &c);
-    twr[j] = c;
-    twi[j] = s;
-  }
-  for (int e = threadIdx.x; e < kCElems; e += kThreads) {
-    const int dst = (e & ~(C - 1)) + bitrev(e & (C - 1), logC);
-    sr[dst] = zr[base + e];
-    si[dst] = zi[base + e];
-  }
-  fft_rows(sr, si, twr, twi, C, logC, false);
-
-  const int c1 = C < 128 ? C : 128;
-  const int C2 = C / c1;
-  const long long roff = base % nfft;  // offset inside the signal row
-  for (int k = 0; k < K; ++k) {
-    const float* hr = resps + static_cast<long long>(k) * 2 * nfft + roff;
-    const float* hi = hr + nfft;
-    for (int e = threadIdx.x; e < kCElems; e += kThreads) {
-      const int rbase = e & ~(C - 1);
-      const int p = e & (C - 1);
-      const int k3 = p / c1 + C2 * (p % c1);
-      const float a = sr[rbase + k3], b = si[rbase + k3];
-      const float h0 = hr[e], h1 = hi[e];
-      const int dst = rbase + bitrev(k3, logC);
-      wr[dst] = a * h0 - b * h1;
-      wi[dst] = a * h1 + b * h0;
-    }
-    fft_rows(wr, wi, twr, twi, C, logC, true);
-    float* orr = out_r + static_cast<long long>(k) * plane + base;
-    float* ori = out_i + static_cast<long long>(k) * plane + base;
-    for (int e = threadIdx.x; e < kCElems; e += kThreads) {
-      orr[e] = wr[e];
-      ori[e] = wi[e];
-    }
-    __syncthreads();  // wr/wi are rewritten for the next response
-  }
+  c_twiddles(t, C);
+  c_forward(zr, zi, base, t, C, logC);
+  c_inverse_responses<true>(t, resps, out_r, out_i, base, plane, nfft, C,
+                            logC, K);
 }
 
 // x*: [R, nfft] stage-A output; resps: [K, 2, nfft]; t2*/it2*: [128, C]
@@ -136,10 +69,8 @@ int run_bccb(const float* xr, const float* xi, const float* resps,
              const float* it2i, float* zr, float* zi, float* out_r,
              float* out_i, int R, int C, int K, cudaStream_t st) {
   if (R <= 0 || K <= 0) return 0;
-  if (C < kCols || C > kMaxC || (C & (C - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int logC = 0;
-  while ((1 << logC) < C) ++logC;
+  const int logC = c_log2(C);
+  if (logC < 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long bc = static_cast<long long>(kN) * C;
   const long long nfft = kN * bc;
   const int strips = C / kCols;

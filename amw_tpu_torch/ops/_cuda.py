@@ -44,6 +44,9 @@ _ENTRIES = {
     "amw_fft_inv_join": ("fft_stage_a", "pppppiiif"),
     "amw_fft_bccb": ("fft_bccb", "pppppppppppiii"),
     "amw_fft_bc_cb": ("fft_bccb", "pppppppppppii"),
+    "amw_fft_bc": ("fft_split", "ppppppii"),
+    "amw_fft_cb": ("fft_split", "pppppppiii"),
+    "amw_fft_cb_multi": ("fft_split", "pppppppiii"),
     "amw_fft_reduce_packed": ("fft_reduce", "ppppppiiif"),
     "amw_fft_reduce": ("fft_reduce", "ppppppiiif"),
 }

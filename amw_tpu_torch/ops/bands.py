@@ -1,10 +1,13 @@
 """Multiband dynamics: band split, per-band soft-knee compression,
 maximizer, brickwall limiter.
 
-Counterpart of ``amw_tpu/ops/bands.py`` with the ``soft_knee`` compressor
-(the reference's scipy fallback, pipeline.py:282-330, the v1 default).
-The ``envelope`` compressor is not ported yet (ROADMAP.md, 'Modules to
-port', item 5).
+Counterpart of ``amw_tpu/ops/bands.py`` with both compressors: the
+memoryless ``soft_knee`` (the reference's scipy fallback,
+pipeline.py:282-330, the v1 default) and the ``envelope`` compressor (an
+attack/release detector per band, the stand-in for the reference's
+Pedalboard band compressor): the four bands come out of the split, each
+band with ``ratio >= 1`` runs ``scan.envelope_follower`` (on the card the
+chunked envelope kernel), then the limiter and gain.
 
 Reference: backend/app/pipeline.py:333-481 (4-band Butterworth-2 filtfilt
 split, ``apply_multiband_dynamics``) and :610-641 (``apply_dynamics`` =
@@ -14,7 +17,7 @@ At plans the staged FFT takes (``fft_staged.site_plan``) the hybrid split
 runs through ``fft_staged.site_roundtrip``: with band maps, one pipeline
 from the signal to the mixed output (the maps and the band sum inside the
 final inverse kernel, which reads each :class:`BandMap`'s parameter row);
-without, the four bands.
+without (the envelope compressor), the four bands.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..constants import (MULTIBAND_CONFIG, MULTIBAND_CROSSOVERS_HZ,
-                         TRUE_PEAK_LIMIT_DB)
+from ..constants import (MULTIBAND_ATTACK_RELEASE_MS, MULTIBAND_CONFIG,
+                         MULTIBAND_CROSSOVERS_HZ, TRUE_PEAK_LIMIT_DB)
 from ..spec import GraphSpec
 from . import design, fft_staged, validctx
 from .basic import compress_soft_knee, db_to_lin, limiter, maximizer
 from .fdfilter import odd_ext
+from .scan import ar_coefs, envelope_follower
 from .zphase import _edge_windows, make_zp, make_zp_from_power, scipy_padlen
 
 
@@ -226,11 +230,6 @@ def build_multiband_dynamics(spec: GraphSpec, knee_db: float = 6.0,
                              max_upward_boost_db: float = 12.0,
                              compressor: str = "soft_knee", pre=None, *,
                              device):
-    if compressor != "soft_knee":
-        raise NotImplementedError(
-            f"compressor={compressor!r}: only 'soft_knee' is ported "
-            "(ROADMAP.md, 'Modules to port', item 5: the envelope "
-            "compressor)")
     ratios_override = (tuple(float(band_ratios[i]) for i in range(4))
                        if band_ratios is not None and len(band_ratios) == 4
                        else None)
@@ -241,11 +240,43 @@ def build_multiband_dynamics(spec: GraphSpec, knee_db: float = 6.0,
         return BandMap(comp_db, ratio, knee_db, max_upward_boost_db, lim_db,
                        gain)
 
-    # soft-knee is memoryless per sample, so the per-band compress,
-    # limiter, gain and the band sum all fuse into the split.
     maps = [_map(i) for i in range(4)]
-    return band_split_plan(spec, crossovers_hz, pre=pre, band_maps=maps,
-                           device=device)
+    if compressor != "envelope":
+        # soft-knee is memoryless per sample, so the per-band compress,
+        # limiter, gain and the band sum all fuse into the split.
+        return band_split_plan(spec, crossovers_hz, pre=pre, band_maps=maps,
+                               device=device)
+
+    params, split_fn = band_split_plan(spec, crossovers_hz, pre=pre,
+                                       device=device)
+
+    def fn(x, params):
+        out = None
+        for i, band in enumerate(split_fn(x, params)):
+            m = maps[i]
+            if m.ratio >= 1.0:
+                atk_ms, rel_ms = MULTIBAND_ATTACK_RELEASE_MS[i]
+                band = _envelope_compress(band, spec.sr, m.threshold_db,
+                                          m.ratio, atk_ms, rel_ms)
+            else:
+                band = compress_soft_knee(
+                    band, threshold_db=m.threshold_db, ratio=m.ratio,
+                    knee_db=m.knee_db,
+                    max_upward_boost_db=m.max_upward_boost_db)
+            band = limiter(band, threshold_db=m.limit_db) * m.gain
+            out = band if out is None else out + band
+        return out
+
+    return params, fn
+
+
+def _envelope_compress(band, sr, threshold_db, ratio, attack_ms, release_ms):
+    """Feed-forward compressor with an attack/release detector."""
+    att, rel = ar_coefs(sr, attack_ms / 1000.0, release_ms / 1000.0)
+    env = envelope_follower(band.abs(), att, rel)
+    env_db = 20.0 * torch.log10(env.clamp(min=1e-10))
+    gain_db = (env_db - threshold_db).clamp(min=0.0) * (1.0 / ratio - 1.0)
+    return band * 10.0 ** (gain_db / 20.0)
 
 
 def build_dynamics(spec: GraphSpec, knee_db: float = 6.0, crossovers_hz=None,

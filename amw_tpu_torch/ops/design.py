@@ -170,6 +170,23 @@ def zero_phase_power(ba_pairs, nfft: int) -> np.ndarray:
     return np.abs(cascade_response(ba_pairs, nfft)) ** 2
 
 
+def linear_phase_ir_from_mag(mag: np.ndarray, n_fft: int) -> np.ndarray:
+    """Linear-phase FIR of length ``n_fft`` whose magnitude on the half grid
+    ``w = πk/(n_fft/2)`` is ``mag`` — delay (n_fft-1)/2 samples.  Mirrors the
+    reference's linear-phase EQ IR construction (pipeline.py:187-217)."""
+    n = int(n_fft)
+    k_pos = np.arange(n // 2 + 1, dtype=np.float64)
+    phase = -2.0 * np.pi * k_pos * (n - 1) / (2.0 * n)
+    half = np.clip(mag, 1e-8, 1e8) * np.exp(1j * phase)
+    H_full = np.zeros(n, dtype=np.complex128)
+    H_full[: n // 2 + 1] = half
+    H_full[n // 2 + 1:] = np.conj(half[1: n // 2][::-1])
+    if n % 2 == 0:
+        H_full[n // 2] = H_full[n // 2].real
+    ir = np.fft.ifft(H_full).real
+    return ir.astype(np.float64)
+
+
 def next_fft_size(n: int) -> int:
     """Smallest FFT size >= n from the set {2^k, 3·2^k, 5·2^k}."""
     if n <= 16:

@@ -1,10 +1,9 @@
 """EQ op builders: target curve, final balance, style EQ, rumble filter.
 
-Counterpart of ``amw_tpu/ops/eq.py``: the minimum-phase target curve
-(optionally on Mid/Side), final spectral balance, style EQ, their fusion
-``build_final_balance_then_style``, and the rumble filter.  The
-linear-phase target curve raises ``NotImplementedError`` (ROADMAP.md,
-'Modules to port', item 6); the high-frequency trim is on no ported path.
+Counterpart of ``amw_tpu/ops/eq.py``: the target curve (minimum phase or
+linear phase, optionally on Mid/Side), final spectral balance, style EQ,
+their fusion ``build_final_balance_then_style``, and the rumble filter;
+the high-frequency trim is on no ported path.
 Each ``build_*`` returns ``(params, fn)``: ``params`` is a nested list of
 float32 numpy arrays (the op's "weights") and ``fn(x, params)`` applies the
 op to ``[..., N]`` with the tensor version of that list.
@@ -24,6 +23,7 @@ import torch
 from ..constants import FINAL_TRIM_DB, STYLE_CONFIGS
 from ..spec import GraphSpec
 from . import design, fft_staged
+from .fdfilter import fftconvolve_same_fd
 from .zphase import hybridize_op, make_zp, make_zp_from_power, scipy_padlen
 
 
@@ -69,14 +69,28 @@ def target_curve_power(spec: GraphSpec, nfft: int) -> np.ndarray:
 
 def build_target_curve(spec: GraphSpec, phase_mode: str = "minimum",
                        eq_ms: bool = False, *, device):
-    """Studio curve (minimum phase): HP 40 Hz, LP 18 kHz, +0.35 dB
-    presence, -0.25 dB mud."""
-    if phase_mode == "linear_phase":
-        raise NotImplementedError(
-            "target_curve phase_mode='linear_phase' is not ported to "
-            "amw_tpu_torch yet (ROADMAP.md, 'Modules to port', item 6)")
+    """Studio curve: HP 40 Hz, LP 18 kHz, +0.35 dB presence, -0.25 dB mud.
+    ``linear_phase``: the curve's magnitude as a 4096-tap linear-phase FIR,
+    one 'same' convolution on ``torch.fft`` (at the JAX package's
+    ``next_fft_size(n + 4096)`` for the backend), clipped to ±1."""
     hp, lp, pr, md = _target_curve_bas(spec)
     g_p, g_m = _db(0.35), _db(-0.25)
+
+    if phase_mode == "linear_phase":
+        n_fft = 4096
+        H = design.cascade_response([hp, lp], n_fft)
+        H = H * (1.0 + (g_p - 1.0) * design.freqz(*pr, n_fft)
+                 + (g_m - 1.0) * design.freqz(*md, n_fft))
+        ir = design.linear_phase_ir_from_mag(np.abs(H), n_fft).astype(
+            np.float32)
+        nfft = fft_staged.site_plan(spec.n + n_fft, device)[0]
+
+        def fn(x, params):
+            return fftconvolve_same_fd(x, params[0], nfft).clamp(-1.0, 1.0)
+
+        if eq_ms and spec.channels == 2:
+            fn = _ms_wrap(spec, fn)
+        return [ir], fn
 
     def build(s: GraphSpec):
         if s.exact:

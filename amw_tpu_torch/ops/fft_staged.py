@@ -18,8 +18,8 @@ convolution, so responses are permuted once on the host
 restore natural order.  Responses built for the JAX package therefore
 carry over unchanged.
 
-Six of the JAX package's Pallas kernels are ported, each as a CUDA
-kernel (``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
+Every Pallas kernel of the JAX module is ported, each as a CUDA kernel
+(``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
 ``torch.matmul`` with the DFT matrices, f32 arithmetic):
 
 ======================================  =====================================
@@ -27,6 +27,13 @@ kernel (``csrc/fft_*.cu``) beside its plain PyTorch version (complex64
 ======================================  =====================================
 ``_stage_a`` (complex, real-in,         :func:`_stage_a`: ``stage_a_plain`` /
 real-out)                               ``stage_a_cuda`` (fft_stage_a.cu)
+``_stage_bc``                           :func:`_stage_bc`: ``bc_plain`` /
+                                        ``bc_cuda`` (fft_split.cu)
+``_stage_cb``                           :func:`_stage_cb`: ``cb_plain`` /
+                                        ``cb_cuda`` (fft_split.cu)
+``_stage_cb_multi``                     :func:`_stage_cb_multi`:
+                                        ``cb_multi_plain`` /
+                                        ``cb_multi_cuda`` (fft_split.cu)
 ``_stage_bc_cb``                        :func:`_stage_bc_cb`:
                                         ``bc_cb_plain`` /
                                         ``bc_cb_cuda`` (fft_bccb.cu)
@@ -46,21 +53,30 @@ real-out)                               ``stage_a_cuda`` (fft_stage_a.cu)
 
 A dispatcher takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device; each ``*_cuda`` wrapper counts its
-launches in ``.launches``.  The split-mode stages (``_stage_bc``,
-``_stage_cb``, ``_stage_cb_multi``) are not ported: no entry point here
-uses them (ROADMAP.md, 'TPU kernels to port').
+launches in ``.launches``.  The fused round trips' plain versions are the
+compositions of the split ones (``bccb_multi_plain = cb_multi_plain ∘
+bc_plain``), so both routes share one algebra.
 
 The plan tables (``plan_params``: t1 and T2 for both directions) are
 runtime parameters in the JAX package's nesting, float32 numpy arrays from
 one cache per ``nfft``; ``convert.to_device`` uploads each of them once per
 parameter tree, so the three fused sites of a chain share one copy on the
-card.  The port carries none of the JAX module's ``AMW_FFT_*`` switches: it
-always runs the fused round trip with row packing, the JAX defaults.
+card.
+
+Of the JAX module's ``AMW_FFT_*`` switches the port carries one,
+``AMW_FFT_FUSED_RT`` (:func:`fused_rt`, read at call time, default
+``"1"``): ``0`` selects the split route, where ``apply_response``,
+``roundtrip_multi`` and ``roundtrip_multi_reduce`` run ``_stage_bc`` and
+then ``_stage_cb`` / ``_stage_cb_multi`` instead of the fused round trip,
+in both packages alike.  ``AMW_FFT_PACK`` (row packing, always on here)
+and ``AMW_FFT_DOT_PREC`` (the TPU matrix unit's passes) select no kernel
+of the port and are not read; ``AMW_FFT_A_COLS`` tiles the TPU grid only.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -242,24 +258,52 @@ def _cstage_inv(x: torch.Tensor, nfft: int) -> torch.Tensor:
     return torch.matmul(wm_t, v).reshape(x.shape)
 
 
-def bccb_multi_plain(xr, xi, resps, nfft: int, tables):
-    """Plain fused forward B+C → K responses → inverse C+B: stage-A output
-    ``[R, nfft]`` planes and ``resps`` [K, 2, nfft] (permuted) → ``[K·R,
-    nfft]`` planes for the final inverse stage A."""
+def bc_plain(xr, xi, nfft: int, tables):
+    """Plain forward B+C: stage-A output ``[R, nfft]`` planes → the stored
+    (permuted) spectrum ``[R, nfft]`` planes."""
     C = nfft // (A * B)
     R = xr.shape[0]
-    K = resps.shape[0]
     dev = xr.device
     t2 = torch.complex(*_tabs(tables, False)[2:4]).reshape(B, C)
-    it2 = torch.complex(*_tabs(tables, True)[2:4]).reshape(B, C)
     x = torch.complex(xr, xi).reshape(R, A, B, C)
     y = torch.matmul(_cmat(_tables(nfft, False)[1], dev), x) * t2
-    y = _cstage_fwd(y, nfft)
-    h = torch.complex(resps[:, 0], resps[:, 1]).reshape(K, 1, A, B, C)
-    z = _cstage_inv(y[None] * h, nfft) * it2
+    y = _cstage_fwd(y, nfft).reshape(R, nfft)
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def cb_multi_plain(Xr, Xi, resps, nfft: int, tables):
+    """Plain inverse C+B of one stored spectrum ``[R, nfft]`` under K
+    responses ``resps`` [K, 2, nfft] (permuted; ``None``: one pass with no
+    response) → ``[K·R, nfft]`` planes for the final inverse stage A."""
+    C = nfft // (A * B)
+    R = Xr.shape[0]
+    K = 1 if resps is None else resps.shape[0]
+    dev = Xr.device
+    it2 = torch.complex(*_tabs(tables, True)[2:4]).reshape(B, C)
+    y = torch.complex(Xr, Xi).reshape(1, R, A, B, C)
+    if resps is not None:
+        y = y * torch.complex(resps[:, 0], resps[:, 1]).reshape(K, 1, A, B, C)
+    z = _cstage_inv(y, nfft) * it2
     z = torch.matmul(_cmat(_tables(nfft, True)[1], dev), z)
     z = z.reshape(K * R, nfft)
     return z.real.contiguous(), z.imag.contiguous()
+
+
+def cb_plain(Xr, Xi, resp, nfft: int, tables):
+    """Plain inverse C+B of a stored spectrum ``[R, nfft]`` times one
+    response ``resp`` [2, nfft] (permuted), or none (``resp=None``: the
+    inverse of :func:`bc_plain`) → ``[R, nfft]`` planes."""
+    return cb_multi_plain(Xr, Xi, None if resp is None else resp[None], nfft,
+                          tables)
+
+
+def bccb_multi_plain(xr, xi, resps, nfft: int, tables):
+    """Plain fused forward B+C → K responses → inverse C+B: stage-A output
+    ``[R, nfft]`` planes and ``resps`` [K, 2, nfft] (permuted) → ``[K·R,
+    nfft]`` planes for the final inverse stage A (:func:`bc_plain`, then
+    :func:`cb_multi_plain`)."""
+    return cb_multi_plain(*bc_plain(xr, xi, nfft, tables), resps, nfft,
+                          tables)
 
 
 def bc_cb_plain(xr, xi, resp, nfft: int, tables):
@@ -389,21 +433,26 @@ def inv_join_cuda(Yr, Yi, K: int, nfft: int, tables):
 inv_join_cuda.launches = 0
 
 
-def _bc_args(name, xr, xi, resps, resp_shape, nfft, tables):
-    """The checks of the B/C kernels' wrappers; returns the forward and
-    inverse T2 tables."""
+def _bc_args(name, xr, xi, resps, resp_shape, nfft, tables,
+             directions=(False, True)):
+    """The checks of the B/C kernels' wrappers (``resps`` may be None);
+    returns the T2 tables of ``directions`` (False forward, True
+    inverse)."""
     if not plan_ok(nfft):
         raise ValueError(f"{name}: no plan for nfft={nfft}")
     _check(name, xr)
     if xr.ndim != 2 or xr.shape[1] != nfft:
         raise ValueError(f"{name}: planes {tuple(xr.shape)} for nfft={nfft}")
     _check(name, xi, shape=xr.shape)
-    _check(name, resps, shape=resp_shape)
     dev = xr.device
-    if resps.device != dev or xi.device != dev:
+    if resps is not None:
+        _check(name, resps, shape=resp_shape)
+        if resps.device != dev:
+            raise ValueError(f"{name}: tensors must share one device")
+    if xi.device != dev:
         raise ValueError(f"{name}: tensors must share one device")
-    return (_check_tables(name, tables, nfft, False, dev)[2:]
-            + _check_tables(name, tables, nfft, True, dev)[2:])
+    return sum((_check_tables(name, tables, nfft, inverse, dev)[2:]
+                for inverse in directions), ())
 
 
 def bccb_multi_cuda(xr, xi, resps, nfft: int, tables):
@@ -449,6 +498,69 @@ def bc_cb_cuda(xr, xi, resp, nfft: int, tables):
 
 
 bc_cb_cuda.launches = 0
+
+
+def bc_cuda(xr, xi, nfft: int, tables):
+    """Launch the forward B+C kernels (replaces ``fft_pallas._stage_bc``):
+    stage-A output ``[R, nfft]`` planes → the stored (permuted) spectrum.
+    Two passes: forward B with T2 into the output, then per C-row the
+    forward C-DFT in place."""
+    from . import _cuda
+
+    t2 = _bc_args("bc_cuda", xr, xi, None, None, nfft, tables, (False,))
+    out_r = torch.empty_like(xr)
+    out_i = torch.empty_like(xr)
+    _cuda.launch("amw_fft_bc", xr, xi, *t2, out_r, out_i, xr.shape[0],
+                 nfft // (A * B))
+    bc_cuda.launches += 1
+    return out_r, out_i
+
+
+bc_cuda.launches = 0
+
+
+def cb_cuda(Xr, Xi, resp, nfft: int, tables):
+    """Launch the inverse C+B kernels (replaces ``fft_pallas._stage_cb``):
+    a stored spectrum ``[R, nfft]`` times one response ``resp`` [2, nfft]
+    (or none, ``resp=None``) → ``[R, nfft]`` planes.  Two passes: per C-row
+    the product and the inverse C-DFT, then conj T2 and inverse B in
+    place."""
+    from . import _cuda
+
+    it2 = _bc_args("cb_cuda", Xr, Xi, resp, (2, nfft), nfft, tables, (True,))
+    out_r = torch.empty_like(Xr)
+    out_i = torch.empty_like(Xr)
+    # without a response the kernel reads no response plane: Xr stands in
+    _cuda.launch("amw_fft_cb", Xr, Xi, Xr if resp is None else resp, *it2,
+                 out_r, out_i, Xr.shape[0], nfft // (A * B),
+                 int(resp is not None))
+    cb_cuda.launches += 1
+    return out_r, out_i
+
+
+cb_cuda.launches = 0
+
+
+def cb_multi_cuda(Xr, Xi, resps, nfft: int, tables):
+    """Launch the inverse C+B kernels over K responses (replaces
+    ``fft_pallas._stage_cb_multi``): a stored spectrum ``[R, nfft]`` and
+    ``resps`` [K, 2, nfft] → ``[K·R, nfft]`` planes; each block of the
+    spectrum is read once for all K responses."""
+    from . import _cuda
+
+    K = resps.shape[0]
+    it2 = _bc_args("cb_multi_cuda", Xr, Xi, resps, (K, 2, nfft), nfft,
+                   tables, (True,))
+    R = Xr.shape[0]
+    out_r = torch.empty((K * R, nfft), dtype=torch.float32, device=Xr.device)
+    out_i = torch.empty_like(out_r)
+    _cuda.launch("amw_fft_cb_multi", Xr, Xi, resps, *it2, out_r, out_i, R,
+                 nfft // (A * B), K)
+    cb_multi_cuda.launches += 1
+    return out_r, out_i
+
+
+cb_multi_cuda.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -531,6 +643,24 @@ def _stage_a(xr, xi, nfft, inverse, tables, real_in=False, real_out=False):
     return stage_a_cuda(xr, xi, nfft, inverse, tables, real_in, real_out)
 
 
+def _stage_bc(xr, xi, nfft, tables):
+    if _on_cpu("_stage_bc", xr):
+        return bc_plain(xr, xi, nfft, tables)
+    return bc_cuda(xr, xi, nfft, tables)
+
+
+def _stage_cb(Xr, Xi, resp, nfft, tables):
+    if _on_cpu("_stage_cb", Xr):
+        return cb_plain(Xr, Xi, resp, nfft, tables)
+    return cb_cuda(Xr, Xi, resp, nfft, tables)
+
+
+def _stage_cb_multi(Xr, Xi, resps, nfft, tables):
+    if _on_cpu("_stage_cb_multi", Xr):
+        return cb_multi_plain(Xr, Xi, resps, nfft, tables)
+    return cb_multi_cuda(Xr, Xi, resps, nfft, tables)
+
+
 def _stage_bc_cb(xr, xi, resp, nfft, tables):
     if _on_cpu("_stage_bc_cb", xr):
         return bc_cb_plain(xr, xi, resp, nfft, tables)
@@ -587,27 +717,103 @@ def _resolve_tables(tables, nfft, device):
         else tables
 
 
+def fused_rt() -> bool:
+    """The fused round trip (default) or the split stages?  Reads
+    ``AMW_FFT_FUSED_RT`` at each call exactly as ``fft_pallas._fused_rt``
+    does, so one variable switches both packages."""
+    return os.environ.get("AMW_FFT_FUSED_RT", "1") == "1"
+
+
+def _round_trip(Xr, Xi, resp, nfft, tables):
+    """Stage-A output → one response → planes for the final inverse stage
+    A: kernel 8, or 6 then 7 on the split route."""
+    if fused_rt():
+        return _stage_bc_cb(Xr, Xi, resp, nfft, tables)
+    Sr, Si = _stage_bc(Xr, Xi, nfft, tables)
+    return _stage_cb(Sr, Si, resp, nfft, tables)
+
+
+def _round_trip_multi(Xr, Xi, resps, nfft, tables):
+    """As :func:`_round_trip` over K responses: kernel 9, or 6 then 10."""
+    if fused_rt():
+        return _stage_bccb_multi(Xr, Xi, resps, nfft, tables)
+    Sr, Si = _stage_bc(Xr, Xi, nfft, tables)
+    return _stage_cb_multi(Sr, Si, resps, nfft, tables)
+
+
+def fft_permuted(xr, xi, nfft: int, tables=None):
+    """Forward FFT of complex rows ``xr``/``xi`` [R, n] (``n <= nfft``,
+    zeros beyond) → the stored (permuted) spectrum (re, im) [R, nfft]."""
+    tables = _resolve_tables(tables, nfft, xr.device)
+    Xr, Xi = _stage_a(xr, xi, nfft, False, tables)
+    return _stage_bc(Xr, Xi, nfft, tables)
+
+
+def ifft_permuted(Xr, Xi, nfft: int, tables=None):
+    """Inverse of :func:`fft_permuted` (adjoint stages, reversed)."""
+    tables = _resolve_tables(tables, nfft, Xr.device)
+    Yr, Yi = _stage_cb(Xr, Xi, None, nfft, tables)
+    return _stage_a(Yr, Yi, nfft, True, tables)
+
+
 def apply_response(x, resp_perm, nfft: int, tables=None,
-                   n_out: int | None = None):
+                   n_out: int | None = None, real_impulse: bool = True):
     """``irfft(rfft(x, nfft) · H)[..., :n_out]`` for real ``x`` [..., n]
     and one permuted response ``resp_perm`` [2, nfft]
     (:func:`permute_full_response`) → real [..., n_out] (``nfft`` when
-    None).  Even row counts ride packed (see :func:`roundtrip_multi`): the
-    packed forward stage A, the round trip, the join at K = 1; odd row
-    counts run stage A real-in, the round trip, stage A real-out."""
+    None).
+
+    ``real_impulse`` declares that ``H`` is conjugate-symmetric (a real
+    impulse response), true of every response this package builds; it
+    gates the row packing (see :func:`roundtrip_multi`): even row counts
+    ride packed (the packed forward stage A, the round trip, the join at
+    K = 1).  Odd row counts, and every count with ``real_impulse=False``,
+    run stage A real-in, the round trip, stage A real-out."""
     tables = _resolve_tables(tables, nfft, x.device)
     xr, lead, R = _prep_rows(x, nfft)
     m = nfft if n_out is None else n_out
-    if _pack_ok(R):
+    if real_impulse and _pack_ok(R):
         R2 = R // 2
         Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
-        Yr, Yi = _stage_bc_cb(Xr, Xi, resp_perm, nfft, tables)
+        Yr, Yi = _round_trip(Xr, Xi, resp_perm, nfft, tables)
         out = _stage_a_inv_join(Yr, Yi, 1, nfft, tables)[0]
         return out[:, :m].reshape(lead + (m,))
     Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
-    Yr, Yi = _stage_bc_cb(Xr, Xi, resp_perm, nfft, tables)
+    Yr, Yi = _round_trip(Xr, Xi, resp_perm, nfft, tables)
     Yr, _ = _stage_a(Yr, Yi, nfft, True, tables, real_out=True)
     return Yr[:, :m].reshape(lead + (m,))
+
+
+def fwd_real(x, nfft: int, tables=None):
+    """Real ``x`` [..., n] → the stored spectrum (re, im) [R, nfft] of its
+    rows, and the leading shape (for :func:`inv_multi`)."""
+    tables = _resolve_tables(tables, nfft, x.device)
+    xr, lead, _ = _prep_rows(x, nfft)
+    Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
+    Xr, Xi = _stage_bc(Xr, Xi, nfft, tables)
+    return Xr, Xi, lead
+
+
+def inv_multi(Xr, Xi, resps_perm, nfft: int, lead, n_out: int, tables=None):
+    """Inverse of one stored spectrum [R, nfft] under K permuted responses
+    [K, 2, nfft] → real [K, *lead, n_out]."""
+    tables = _resolve_tables(tables, nfft, Xr.device)
+    K = resps_perm.shape[0]
+    Yr, Yi = _stage_cb_multi(Xr, Xi, resps_perm, nfft, tables)
+    Yr, _ = _stage_a(Yr, Yi, nfft, True, tables, real_out=True)
+    return Yr[:, :n_out].reshape((K,) + tuple(lead) + (n_out,))
+
+
+def inv_multi_reduce(Xr, Xi, resps_perm, nfft: int, lead, n_out: int,
+                     band_fns, tables=None):
+    """:func:`inv_multi` with ``band_fns[k]`` applied to band k and the
+    bands summed inside the final inverse stage → real [*lead, n_out]."""
+    tables = _resolve_tables(tables, nfft, Xr.device)
+    K = resps_perm.shape[0]
+    R = Xr.shape[0]
+    Yr, Yi = _stage_cb_multi(Xr, Xi, resps_perm, nfft, tables)
+    out = _reduce_stage_a(Yr, Yi, K, R, nfft, band_fns, tables)
+    return out[:, :n_out].reshape(tuple(lead) + (n_out,))
 
 
 def roundtrip_multi(x, resps_perm, nfft: int, n_out: int, tables=None):
@@ -625,11 +831,11 @@ def roundtrip_multi(x, resps_perm, nfft: int, n_out: int, tables=None):
     if _pack_ok(R):
         R2 = R // 2
         Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
-        Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+        Yr, Yi = _round_trip_multi(Xr, Xi, resps_perm, nfft, tables)
         out = _stage_a_inv_join(Yr, Yi, K, nfft, tables)
         return out[..., :n_out].reshape((K,) + lead + (n_out,))
     Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
-    Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+    Yr, Yi = _round_trip_multi(Xr, Xi, resps_perm, nfft, tables)
     Yr, _ = _stage_a(Yr, Yi, nfft, True, tables, real_out=True)
     return Yr[:, :n_out].reshape((K,) + lead + (n_out,))
 
@@ -646,11 +852,11 @@ def roundtrip_multi_reduce(x, resps_perm, nfft: int, n_out: int, band_fns,
     if _pack_ok(R):
         R2 = R // 2
         Xr, Xi = _stage_a(xr[:R2], xr[R2:], nfft, False, tables)
-        Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+        Yr, Yi = _round_trip_multi(Xr, Xi, resps_perm, nfft, tables)
         out = _reduce_stage_a_packed(Yr, Yi, K, R2, nfft, band_fns, tables)
         return out[:, :n_out].reshape(lead + (n_out,))
     Xr, Xi = _stage_a(xr, None, nfft, False, tables, real_in=True)
-    Yr, Yi = _stage_bccb_multi(Xr, Xi, resps_perm, nfft, tables)
+    Yr, Yi = _round_trip_multi(Xr, Xi, resps_perm, nfft, tables)
     out = _reduce_stage_a(Yr, Yi, K, R, nfft, band_fns, tables)
     return out[:, :n_out].reshape(lead + (n_out,))
 

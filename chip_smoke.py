@@ -7,14 +7,17 @@ Phases, each printing JSON lines:
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build   — compiles the CUDA kernels of ``amw_tpu_torch/csrc`` (nvcc,
              one process per source, all started together);
-3. kernels — each of the ten kernels against its plain PyTorch version on
-             the card at the shapes of the 180 s batch (16 rows of
-             7 938 000 samples; the staged FFT at nfft = 2^23, 8 packed
+3. kernels — each of the thirteen kernels against its plain PyTorch
+             version on the card at the shapes of the 180 s batch (16 rows
+             of 7 938 000 samples; the staged FFT at nfft = 2^23, 8 packed
              rows, K = 2 and 4 responses; kernel 8 also unpacked on one
-             row, kernel 12 at K = 4 on one mono row; the chunked envelope
+             row, kernel 12 at K = 4 on one mono row; the split stages:
+             kernel 6, kernel 7 with a response, without one and on one
+             unpacked row, kernel 10 at K = 2 and 4; the chunked envelope
              with the transient designer's slow ballistics; the per-row
              envelope at the 2 s clip's [16, 88 200]), with CUDA-event
-             times (median of 20), the bound and a PyTorch library
+             times (median of 20; the envelope kernels' plain versions one
+             run after a warm-up), the bound and a PyTorch library
              yardstick; the box and env-gain kernels also at the 5 s
              batch's shapes (16 rows of 220 500 samples and that length's
              chunk geometry);
@@ -24,27 +27,42 @@ Phases, each printing JSON lines:
              ``roundtrip_multi`` over every staged plan (2^19 .. 2^24);
 5. slice   — the v1 ``standard`` chain (``build_v1_pipeline``) on a
              micro-batch of 8 stereo 44.1 kHz tracks, two of them
-             bucket-padded, twice: 5 s tracks (slice 1: no FFT kernel) and
-             180 s tracks (slice 2: the staged FFT).  Each run: kernel
-             launch counts (reset just before, read just after), output
-             checks (finite, |y| <= 1, integrated loudness within 1 LU of
-             -14), parity with the port's plain path on the CPU (<= -90
-             dBFS, <= 0.1 LU; at 180 s for one full and one padded track),
-             and the steady-state realtime factor; a profile of the 180 s
-             batch (device time by kernel, idle share);
-6. v2        — the v2 mastering job (``build_v2_job_graph``: the default
+             bucket-padded, twice: 5 s tracks (no FFT kernel) and 180 s
+             tracks (the staged FFT).  Each run: kernel launch counts
+             (reset just before, read just after), output checks (finite,
+             |y| <= 1, integrated loudness within 1 LU of -14), parity
+             with the port's plain path on the CPU (<= -90 dBFS, <= 0.1 LU;
+             at 180 s for the padded 97.5 s track), and the
+             steady-state realtime factor; a profile of the 180 s batch
+             (device time by kernel, idle share);
+6. v1_split — the same 180 s batch on the split route
+             (``AMW_FFT_FUSED_RT=0``: kernel 6 then 10 at each fused site),
+             launch counts, the output against the fused route's (<= -90
+             dBFS, <= 0.1 LU), the wall beside the fused route's;
+7. analyze — ``analyze(extended=True)`` and ``lufs_analyze_tool`` on a
+             180 s and a 97.5 s stereo track, a 180 s mono track and a 5 s
+             clip, each on the fused and the split route: launch counts,
+             the graph's outputs and both response dicts against the
+             port's CPU path (0.01 LU / dB, correlation 1e-4, vectorscope
+             equal, same keys and None pattern), wall per call and
+             realtime factor; a profile of the 180 s stereo tool call;
+8. v2      — the v2 mastering job (``build_v2_job_graph``: the default
              ``standard`` chain config plus the pro set ``V2_PRO``) three
              times: 8 stereo 180 s tracks (the last two bucket-padded to
              150 s and 97.5 s), one mono 180 s track at ``podcast`` (odd
              rows: the unpacked kernels 8 and 12), and one 2 s stereo clip
-             at ``edm`` (the per-row envelope, the exciter and imager).
-             Each run: launch counts against those derived from the code,
-             output checks, parity with the port's CPU path (<= -90 dBFS,
-             <= 0.1 LU, the graph's before/after loudness within 0.01 LU),
-             the realtime factor; a profile of the 180 s batch;
-7. a ``kernels`` line: each kernel's launches on the path that uses it
-   (the v1 180 s batch for the first six, the v2 runs for kernels 8, 12,
-   2' and 3), error, times, bound.
+             at ``edm`` (the per-row envelope, the exciter and imager);
+             then one stereo 180 s track with the linear-phase target curve
+             and the envelope compressor (``options_config``).  Each run:
+             launch counts against those derived from the code, output
+             checks, parity with the port's CPU path for one track each
+             (the batch's padded 97.5 s track; <= -90 dBFS, <= 0.1 LU, the
+             graph's before/after loudness within 0.01 LU), the realtime
+             factor; a profile of the 180 s batch;
+9. a ``kernels`` line: each kernel's launches on the path that uses it
+   (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
+   and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
+   3), error, times, bound.
 
 Any failure raises (non-zero exit).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,7 +71,9 @@ Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -64,8 +84,12 @@ import torch
 
 from amw_tpu_torch import GraphSpec
 from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
+                                     MULTIBAND_ATTACK_RELEASE_MS,
                                      MULTIBAND_CONFIG, STYLE_CONFIGS)
-from amw_tpu_torch.models import build_v1_pipeline, build_v2_job_graph
+from amw_tpu_torch.models import (analyze, build_v1_pipeline,
+                                  build_v2_job_graph, default_chain_config,
+                                  lufs_analyze_tool)
+from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.ops import _cuda, design, fdfilter, meters, scan
 from amw_tpu_torch.ops import fft_staged as fs
 from amw_tpu_torch.ops.bands import BandMap
@@ -112,6 +136,9 @@ COUNTERS = {
     "fft_reduce_stage_a": fs.reduce_cuda,
     "env_scan": scan.env_scan_cuda,
     "env_rows": scan.env_rows_cuda,
+    "fft_bc": fs.bc_cuda,
+    "fft_cb": fs.cb_cuda,
+    "fft_cb_multi": fs.cb_multi_cuda,
 }
 
 
@@ -300,7 +327,7 @@ def phase_kernels(dev) -> dict:
         "amw_tpu/ops/scan.py:375", [rows, n], env_err, None, ENV_ATOL,
         lambda: scan.env_gain_cuda(*args),
         lambda: scan.env_gain_plain(*args), 2 * rows * n * 4 + rows * 4,
-        rows * n * 12, None, plain_reps=3, W=W, C=C, K=K,
+        rows * n * 12, None, plain_reps=1, W=W, C=C, K=K,
         serial_steps=W + C, max_abs_err_5s=env_err_5s)
     del args
 
@@ -553,7 +580,7 @@ def phase_new_kernels(dev) -> dict:
         "env_scan", "amw_tpu_torch/csrc/env_scan.cu",
         "amw_tpu/ops/scan.py:375", [rows, n], err, None, ENV_ATOL,
         lambda: scan.env_scan_cuda(*a2), lambda: scan.env_scan_plain(*a2),
-        2 * rows * n * 4, rows * n * 5, None, plain_reps=3, W=W, C=C, K=Kc,
+        2 * rows * n * 4, rows * n * 5, None, plain_reps=1, W=W, C=C, K=Kc,
         serial_steps=W + C, ballistics_ms=[5.0, 100.0])
     del v, a2
 
@@ -571,8 +598,135 @@ def phase_new_kernels(dev) -> dict:
         "amw_tpu/ops/scan.py:122", [rows, ns], err, None, ENV_ATOL,
         lambda: scan.env_rows_cuda(v, att, rel_c),
         lambda: scan.env_rows_plain(v, att, rel_c),
-        2 * rows * ns * 4, rows * ns * 5, None, plain_reps=3,
+        2 * rows * ns * 4, rows * ns * 5, None, plain_reps=1,
         serial_steps=ns, ballistics_ms=[5.0, 100.0])
+    return out
+
+
+def phase_split_kernels(dev) -> dict:
+    """The split route's three kernels against their plain versions at the
+    split v1 batch's shapes (nfft = 2^23, the packed stage-A output of 16
+    rows of 7 938 000 samples): kernel 6 (forward B+C), kernel 7 (inverse
+    C+B with one response, and without one; also on one unpacked row) and
+    kernel 10 (K = 2 and 4 responses)."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    nfft = LONG_NFFT
+    n = int(SR * LONG[0])
+    rows = BATCH * 2
+    R2 = rows // 2
+    S = nfft // fs.A
+    lg = 16  # log2(B * C)
+    t2_bytes = 2 * nfft // fs.A * 4  # one direction's T2 table
+    tabs = fs._device_tables(nfft, dev)
+    out = {}
+    x = (0.3 * torch.randn(rows, n, generator=g)).to(dev)
+    Xr, Xi = fs.stage_a_cuda(x[:R2], x[R2:], nfft, False, tabs)
+    H = 0.25 + torch.rand(4, nfft // 2 + 1, generator=g, dtype=torch.float64)
+    resps = torch.from_numpy(np.stack([fs.permute_full_response(h.numpy(),
+                                                                nfft)
+                                       for h in H])).to(dev)
+
+    # -- kernel 6: forward B+C into the stored spectrum
+    a6 = (Xr, Xi, nfft, tabs)
+    Sr, Si = fs.bc_cuda(*a6)
+    Pr, Pi = fs.bc_plain(*a6)
+    torch.cuda.synchronize()
+    e = [rel_err(Sr, Pr), rel_err(Si, Pi)]
+    err, rel = max(v[0] for v in e), max(v[1] for v in e)
+    check(rel <= FFT_REL, f"forward B/C kernel rel err {rel} > {FFT_REL}")
+    del Pr, Pi
+    xc = torch.complex(Xr, Xi).view(R2, fs.A, S)
+    out["fft_bc"] = kernel_entry(
+        "fft_bc", "amw_tpu_torch/csrc/fft_split.cu",
+        "amw_tpu/ops/fft_pallas.py:608", [R2, nfft], err, rel, FFT_REL,
+        lambda: fs.bc_cuda(*a6), lambda: fs.bc_plain(*a6),
+        4 * R2 * nfft * 4 + t2_bytes, R2 * nfft * (5 * lg + 6),
+        ("torch.fft.fft along the joint (b, c) axis of [8, 128, 65536] "
+         "complex", lambda: torch.fft.fft(xc, dim=-1)))
+    # the yardstick's spectrum in natural order, the responses gathered
+    Xn = torch.fft.fft(xc, dim=-1)
+    del xc
+    order = yardstick_order(nfft, dev)
+    hn = torch.gather(torch.complex(resps[:, 0], resps[:, 1]).view(4, fs.A, S),
+                      2, order.expand(4, -1, -1))[:, None]
+
+    # -- kernel 7: inverse C+B under one response, and without one
+    a7 = (Sr, Si, resps[0], nfft, tabs)
+    Yr, Yi = fs.cb_cuda(*a7)
+    Pr, Pi = fs.cb_plain(*a7)
+    torch.cuda.synchronize()
+    e = [rel_err(Yr, Pr), rel_err(Yi, Pi)]
+    err, rel = max(v[0] for v in e), max(v[1] for v in e)
+    check(rel <= FFT_REL, f"inverse C/B kernel rel err {rel} > {FFT_REL}")
+    del Pr, Pi
+
+    def lib7():
+        return torch.fft.ifft(Xn * hn[0], dim=-1, norm="forward")
+
+    lib_err = rel_err(lib7().reshape(R2, nfft).real, Yr)[1]
+    del Yr, Yi
+    a7n = (Sr, Si, None, nfft, tabs)
+    got = fs.cb_cuda(*a7n)
+    want = fs.cb_plain(*a7n)
+    torch.cuda.synchronize()
+    rel_n = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+    check(rel_n <= FFT_REL, f"inverse C/B kernel, no response: {rel_n}")
+    del got, want
+    # one unpacked row (a mono track): real-in stage A, then kernel 6
+    Ur, Ui = fs.bc_cuda(*fs.stage_a_cuda(x[:1], None, nfft, False, tabs,
+                                         real_in=True), nfft, tabs)
+    u7 = (Ur, Ui, resps[0], nfft, tabs)
+    got = fs.cb_cuda(*u7)
+    want = fs.cb_plain(*u7)
+    torch.cuda.synchronize()
+    rel_u = max(rel_err(got[0], want[0])[1], rel_err(got[1], want[1])[1])
+    check(rel_u <= FFT_REL, f"inverse C/B kernel, one row: rel err {rel_u}")
+    del got, want
+    out["fft_cb"] = kernel_entry(
+        "fft_cb", "amw_tpu_torch/csrc/fft_split.cu",
+        "amw_tpu/ops/fft_pallas.py:628", [R2, nfft], err, rel, FFT_REL,
+        lambda: fs.cb_cuda(*a7), lambda: fs.cb_plain(*a7),
+        (4 * R2 * nfft + 2 * nfft) * 4 + t2_bytes,
+        R2 * nfft * (6 + 5 * lg + 6),
+        ("mul + torch.fft.ifft along the joint (b, c) axis of "
+         "[8, 128, 65536] complex", lib7),
+        library_rel_err=lib_err, max_rel_err_no_response=rel_n,
+        no_response_ms=cuda_ms(lambda: fs.cb_cuda(*a7n)),
+        max_rel_err_unpacked=rel_u,
+        unpacked_ms=cuda_ms(lambda: fs.cb_cuda(*u7)),
+        unpacked_bound_ms=bound_ms((4 * nfft + 2 * nfft) * 4 + t2_bytes,
+                                   nfft * (6 + 5 * lg + 6))[0])
+    del Ur, Ui, u7
+
+    # -- kernel 10: one stored spectrum under K responses
+    for K in (2, 4):
+        a10 = (Sr, Si, resps[:K], nfft, tabs)
+        Yr, Yi = fs.cb_multi_cuda(*a10)
+        Pr, Pi = fs.cb_multi_plain(*a10)
+        torch.cuda.synchronize()
+        e = [rel_err(Yr, Pr), rel_err(Yi, Pi)]
+        err, rel = max(v[0] for v in e), max(v[1] for v in e)
+        check(rel <= FFT_REL, f"inverse C/B kernel (K={K}) rel err {rel}")
+        del Pr, Pi, Yr, Yi
+
+        def lib10(K=K):
+            return torch.fft.ifft(Xn[None] * hn[:K], dim=-1, norm="forward")
+
+        entry = kernel_entry(
+            "fft_cb_multi", "amw_tpu_torch/csrc/fft_split.cu",
+            "amw_tpu/ops/fft_pallas.py:718", [R2, nfft], err, rel, FFT_REL,
+            lambda a10=a10: fs.cb_multi_cuda(*a10),
+            lambda a10=a10: fs.cb_multi_plain(*a10),
+            (2 * R2 * nfft + 2 * K * nfft + 2 * K * R2 * nfft) * 4 + t2_bytes,
+            R2 * nfft * K * (6 + 5 * lg + 6),
+            ("K x (mul + torch.fft.ifft) along the joint (b, c) axis of "
+             "[8, 128, 65536] complex", lib10), K=K)
+        if K == 2:
+            out["fft_cb_multi"] = entry
+        else:
+            out["fft_cb_multi"]["k4"] = {
+                k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "max_rel_err")}
     return out
 
 
@@ -666,15 +820,21 @@ def make_batch(dur: float, valid_s, batch: int, channels: int,
     """``batch`` tracks of ``dur`` s (``make_track``, first ``channels``),
     the last ``len(valid_s)`` zero past their valid seconds, and the valid
     lengths."""
-    n = int(SR * dur)
     xb = np.stack([make_track(SR, dur, seed=seed0 + i)[:channels]
                    for i in range(batch)])
-    nv = np.full(batch, n, np.int32)
-    if valid_s:
-        nv[-len(valid_s):] = [int(v * SR) for v in valid_s]
+    nv = valid_lengths(dur, valid_s, batch)
     for i in range(batch):
         xb[i, :, nv[i]:] = 0.0
     return xb, nv
+
+
+def valid_lengths(dur: float, valid_s, batch: int) -> np.ndarray:
+    """[batch] valid lengths: ``dur`` s, the last ``len(valid_s)`` tracks
+    ``valid_s`` s."""
+    nv = np.full(batch, int(SR * dur), np.int32)
+    if valid_s:
+        nv[-len(valid_s):] = [int(v * SR) for v in valid_s]
+    return nv
 
 
 def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
@@ -756,13 +916,15 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
           "max_err_vs_cpu_dbfs": err_db, "max_lu_delta_vs_cpu": d_lu,
           "cpu_plain_s": cpu_s, "wall_s_per_batch": wall,
           "realtime_factor": BATCH * dur / wall})
-    return launches, (lambda: fn(x_d, params, nv_d)), wall
+    return launches, (lambda: fn(x_d, params, nv_d)), wall, y_np
 
 
-def job_expected(n: int, rows: int, style: str) -> dict:
+def job_expected(n: int, rows: int, style: str, options: bool = False
+                 ) -> dict:
     """Each kernel's launches on one call of the v2 job with ``V2_PRO``
     over ``rows`` signal rows (tracks x channels) of ``n`` samples, as the
-    code reads (amw_tpu_torch/models/v2_job.py and the ops it builds)."""
+    code reads (amw_tpu_torch/models/v2_job.py and the ops it builds).
+    ``options``: the chain config of :func:`options_config`."""
     e = {name: 0 for name in COUNTERS}
     # the de-esser: envelope -> gain, box (scan.deesser_gain_combine)
     e["env_gain"] = e["box_smooth_same"] = 1
@@ -793,30 +955,58 @@ def job_expected(n: int, rows: int, style: str) -> dict:
         e["fft_stage_a_inv_join"] += 1 if packed else 0
         e["fft_reduce_stage_a_packed" if packed
           else "fft_reduce_stage_a"] = 1
+        if options:
+            # the linear-phase target curve runs torch.fft and ends the
+            # target_curve+dynamics fusion; the envelope compressor's split
+            # is roundtrip_multi over the 4 bands: the join (packed) or
+            # stage A real-out (unpacked) instead of the reduce
+            e["fft_reduce_stage_a_packed" if packed
+              else "fft_reduce_stage_a"] = 0
+            e["fft_stage_a_inv_join" if packed else "fft_stage_a"] += 1
+    if options:  # one envelope per band (every band ratio is >= 1)
+        for att_ms, rel_ms in MULTIBAND_ATTACK_RELEASE_MS:
+            a, r = scan.ar_coefs(SR, att_ms / 1000.0, rel_ms / 1000.0)
+            short = scan.short_route(n, scan.warmup_len(a, r))
+            e["env_rows" if short else "env_scan"] += 1
     return e
 
 
+def options_config() -> dict:
+    """The default chain config with the two chain-config options of
+    slice 4: the linear-phase target curve and the envelope compressor."""
+    cfg = default_chain_config()
+    for m in cfg["modules"]:
+        if m["id"] == "target_curve":
+            m["phase_mode"] = "linear_phase"
+        if m["id"] == "dynamics":
+            m["compressor"] = "envelope"
+    return cfg
+
+
 def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
-             channels: int, style: str, cpu_tracks, reps: int = 5):
+             channels: int, style: str, cpu_tracks, reps: int = 5,
+             options: bool = False):
     """Master ``batch`` tracks of ``dur`` s through the v2 job (default
-    chain config at ``style`` and its target loudness, ``V2_PRO``) on the
-    card: launch counts against :func:`job_expected`, output checks,
-    parity of ``cpu_tracks`` with the port's CPU path, the steady-state
-    realtime factor.  Returns the launch counts, a steady-state step and
-    its wall time."""
+    chain config at ``style`` and its target loudness, ``V2_PRO``; with
+    ``options`` the config of :func:`options_config`) on the card: launch
+    counts against :func:`job_expected`, output checks, parity of
+    ``cpu_tracks`` with the port's CPU path, the steady-state realtime
+    factor.  Returns the launch counts, a steady-state step and its wall
+    time."""
     n = int(SR * dur)
+    config = options_config() if options else None
     target = STYLE_CONFIGS[style]["lufs"]
     t0 = time.perf_counter()
     xb, nv = make_batch(dur, valid_s, batch, channels, seed0=10)
     data_s = time.perf_counter() - t0
     spec = GraphSpec(sr=SR, n=n, channels=channels)
     t0 = time.perf_counter()
-    params, fn, names = build_v2_job_graph(spec, None, V2_PRO, target, style,
-                                           device=dev)
+    params, fn, names = build_v2_job_graph(spec, config, V2_PRO, target,
+                                           style, device=dev)
     build_s = time.perf_counter() - t0
     x_d = torch.from_numpy(xb).to(dev)
     nv_d = torch.from_numpy(nv).to(dev)
-    expect = job_expected(n, batch * channels, style)
+    expect = job_expected(n, batch * channels, style, options)
 
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -850,7 +1040,7 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
 
         # the port's plain path on the CPU, same input
         idx = list(cpu_tracks)
-        p_cpu, fn_cpu, _ = build_v2_job_graph(spec, None, V2_PRO, target,
+        p_cpu, fn_cpu, _ = build_v2_job_graph(spec, config, V2_PRO, target,
                                               style, device="cpu")
         t0 = time.perf_counter()
         res_c = fn_cpu(torch.from_numpy(xb[idx]), p_cpu,
@@ -880,6 +1070,7 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
         wall = (time.perf_counter() - t0) / reps
 
     emit({"phase": "v2", "run": label, "stages": names, "style": style,
+          "config": "options" if options else "default",
           "pro": V2_PRO, "batch": batch, "channels": channels,
           "track_s": dur, "n_valid": nv.tolist(), "data_s": data_s,
           "params_build_s": build_s, "first_batch_s": first_s,
@@ -893,6 +1084,194 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
           "wall_s_per_batch": wall,
           "realtime_factor": batch * dur / wall})
     return launches, (lambda: fn(x_d, params, nv_d)), wall, names
+
+
+@contextlib.contextmanager
+def fft_route(split: bool):
+    """The staged FFT's route inside the block: ``AMW_FFT_FUSED_RT`` 0
+    (the split stages) or 1 (the fused round trips), the earlier value
+    restored after it, also when the block raises."""
+    old = os.environ.get("AMW_FFT_FUSED_RT")
+    os.environ["AMW_FFT_FUSED_RT"] = "0" if split else "1"
+    try:
+        check(fs.fused_rt() != split, "AMW_FFT_FUSED_RT not read")
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("AMW_FFT_FUSED_RT", None)
+        else:
+            os.environ["AMW_FFT_FUSED_RT"] = old
+
+
+def phase_v1_split(step, y_fused: np.ndarray, nv: np.ndarray,
+                   wall_fused: float, reps: int = 5) -> dict:
+    """The v1 180 s batch again on the split route (the same graph and
+    input: the route is read at each call): launch counts as the code
+    reads (kernel 6 then 10 at each fused site, no kernel 9), the output
+    against the fused route's, and the wall beside it."""
+    expect = {name: 0 for name in COUNTERS}
+    expect.update(box_smooth_same=1, env_gain=1, fft_stage_a=3, fft_bc=3,
+                  fft_cb_multi=3, fft_stage_a_inv_join=2,
+                  fft_reduce_stage_a_packed=1)
+    with torch.no_grad(), fft_route(split=True):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        y = step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        check(launches == expect, f"v1 180 s split: launches {launches}, "
+              f"expected {expect}")
+        y_np = y.cpu().numpy()
+        del y
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    check(bool(np.all(np.isfinite(y_np))), "split route: non-finite output")
+    err = float(np.max(np.abs(y_np - y_fused)))
+    err_db = 20 * np.log10(max(err, 1e-30))
+    d_lu = float(np.max(np.abs(track_lufs(y_np, nv) - track_lufs(y_fused,
+                                                                  nv))))
+    check(err_db <= PARITY_DBFS, f"split vs fused route {err_db:.1f} dBFS")
+    check(d_lu <= PARITY_LU, f"split vs fused route loudness delta {d_lu}")
+    emit({"phase": "v1_split", "track_s": LONG[0], "batch": BATCH,
+          "launches": launches, "expected_launches": expect,
+          "first_batch_s": first_s, "max_err_vs_fused": err,
+          "max_err_vs_fused_dbfs": err_db, "max_lu_delta_vs_fused": d_lu,
+          "wall_s_per_batch": wall, "fused_wall_s_per_batch": wall_fused,
+          "realtime_factor": BATCH * LONG[0] / wall})
+    return launches
+
+
+# the analysis runs: label, seconds, channels
+ANALYZE_RUNS = (("analyze_180s", 180.0, 2), ("analyze_97s", 97.5, 2),
+                ("analyze_mono_180s", 180.0, 1), ("analyze_5s", 5.0, 2))
+ANALYZE_TOL = {"correlation": 1e-4}  # else 0.01 LU / dB
+
+
+def analyze_expected(n_pad: int, channels: int, split: bool) -> dict:
+    """Each kernel's launches on one call of the analysis graph at bucket
+    length ``n_pad``: its one K-weighting pass (``fft_staged.
+    apply_response`` where the plan is staged, else cuFFT)."""
+    e = {name: 0 for name in COUNTERS}
+    nfft, staged = fs.site_plan(n_pad + meters.k_weight_settle(SR), "cuda")
+    if staged:
+        packed = channels % 2 == 0
+        e["fft_stage_a"] = 1 if packed else 2
+        e["fft_stage_a_inv_join"] = 1 if packed else 0
+        if split:
+            e["fft_bc"] = e["fft_cb"] = 1
+        else:
+            e["fft_bc_cb"] = 1
+    return e
+
+
+def same_dict(got, want, path: str = "") -> None:
+    """The response dicts: same keys, same None pattern, floats within
+    0.01 (values rounded to 0.01 may land one step apart), the rest
+    equal."""
+    check(type(got) is type(want), f"{path}: {type(got)} vs {type(want)}")
+    if isinstance(want, dict):
+        check(list(got) == list(want), f"{path}: keys {list(got)}")
+        for k in want:
+            same_dict(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{path}: length {len(got)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_dict(a, b, f"{path}[{i}]")
+    elif isinstance(want, float):
+        check(abs(got - want) <= 0.01 + 1e-9, f"{path}: {got} vs {want}")
+    else:
+        check(got == want, f"{path}: {got} vs {want}")
+
+
+def phase_analyze(dev) -> dict:
+    """``analyze(extended=True)`` and ``lufs_analyze_tool`` on the card for
+    each of ``ANALYZE_RUNS``, on the fused and the split route: the
+    graph's launch counts, its raw outputs and both response dicts against
+    the port's CPU path on the same input, the wall per call and the
+    realtime factor.  Returns each run's launch counts by label."""
+    out = {}
+    for i, (label, dur, channels) in enumerate(ANALYZE_RUNS):
+        x = make_track(SR, dur, seed=20 + i)[:channels]
+        n = x.shape[-1]
+        n_pad = _bucket_for(SR, n)
+        xp = np.pad(x, ((0, 0), (0, n_pad - n)))
+        fn_c, Hk_c = _analysis_graph(SR, n_pad, channels, True, True,
+                                     device=torch.device("cpu"))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = {k: v.numpy()
+                    for k, v in fn_c(torch.from_numpy(xp), Hk_c, n).items()}
+        cpu_s = time.perf_counter() - t0
+        dicts_c = (analyze(x, SR, extended=True, device="cpu"),
+                   lufs_analyze_tool(x, SR, device="cpu"))
+        fn, Hk = _analysis_graph(SR, n_pad, channels, True, True, device=dev)
+        x_d = torch.from_numpy(xp).to(dev)
+        for route in ("fused", "split"):
+            run = f"{label}_split" if route == "split" else label
+            with torch.no_grad(), fft_route(split=route == "split"):
+                expect = analyze_expected(n_pad, channels, route == "split")
+                torch.cuda.synchronize()
+                reset_counts()
+                got = {k: v.cpu().numpy() for k, v in fn(x_d, Hk, n).items()}
+                launches = read_counts()
+                check(launches == expect, f"{run}: launches {launches}, "
+                      f"expected {expect}")
+                errs = {}
+                for k, w in want.items():
+                    g = got[k]
+                    check(g.shape == w.shape, f"{run}: {k} shape {g.shape}")
+                    if w.dtype == bool or k == "vectorscope":
+                        check(bool(np.array_equal(g, w)), f"{run}: {k}")
+                        continue
+                    # gated values (-1e9) must agree exactly
+                    errs[k] = float(np.max(np.abs(g.astype(np.float64) - w)))
+                    check(errs[k] <= ANALYZE_TOL.get(k, 0.01),
+                          f"{run}: {k} differs from the CPU path by "
+                          f"{errs[k]}")
+                dicts = (analyze(x, SR, extended=True, device=dev),
+                         lufs_analyze_tool(x, SR, device=dev))
+                for d, dc in zip(dicts, dicts_c):
+                    same_dict(d, dc, run)
+                walls = {}
+                for name, call in (
+                        ("analyze", lambda: analyze(x, SR, extended=True,
+                                                    device=dev)),
+                        ("lufs_analyze_tool",
+                         lambda: lufs_analyze_tool(x, SR, device=dev))):
+                    call()
+                    ts = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        call()  # ends in a copy to the host: synchronous
+                        ts.append(time.perf_counter() - t0)
+                    walls[name] = statistics.median(ts)
+                if run == "analyze_180s":
+                    phase_profile(lambda: lufs_analyze_tool(x, SR,
+                                                            device=dev),
+                                  walls["lufs_analyze_tool"] * 1e3,
+                                  "analyze_180s_lufs_tool", reps=3)
+            out[run] = launches
+            emit({"phase": "analyze", "run": run, "track_s": dur,
+                  "channels": channels, "bucket_s": n_pad / SR,
+                  "nfft": fs.site_plan(n_pad + meters.k_weight_settle(SR),
+                                       dev)[0],
+                  "launches": launches, "expected_launches": expect,
+                  "max_err_vs_cpu": errs, "cpu_graph_s": cpu_s,
+                  "lufs": dicts[0]["lufs"],
+                  "true_peak_dbfs": dicts[1]["true_peak_dbfs"],
+                  "loudness_range_lu": dicts[1]["loudness_range_lu"],
+                  "wall_s_per_call": walls,
+                  "realtime_factor": {k: dur / v for k, v in walls.items()}})
+        del x_d, fn, Hk
+    return out
 
 
 def phase_profile(step, wall_ms: float, label: str, reps: int = 3) -> None:
@@ -932,23 +1311,31 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels(dev)
     kernels.update(phase_new_kernels(dev))
+    kernels.update(phase_split_kernels(dev))
     phase_entry(dev)
 
-    # v1: the 5 s batch runs no FFT kernel, the 180 s batch the staged FFT;
-    # neither runs an envelope follower or a one-response pass
+    # v1: the 5 s batch runs no FFT kernel, the 180 s batch the staged FFT
+    # (fused route, then split); neither runs an envelope follower or a
+    # one-response pass
     idle = {name: 0 for name in COUNTERS}
     phase_slice(dev, *SHORT,
                 expect={**idle, "box_smooth_same": 1, "env_gain": 1})
-    v1, step, wall = phase_slice(
-        dev, *LONG, cpu_tracks=(0, BATCH - 1), reps=5,
+    v1, step, wall, y_v1 = phase_slice(
+        dev, *LONG, cpu_tracks=(BATCH - 1,), reps=5,
         expect={**idle, "box_smooth_same": 1, "env_gain": 1,
                 "fft_stage_a": 3, "fft_bccb_multi": 3,
                 "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
     phase_profile(step, wall * 1e3, "v1_180s", reps=2)
+    v1_split = phase_v1_split(step, y_v1, valid_lengths(*LONG, BATCH), wall)
+    del step, y_v1
 
-    # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip
+    # the analysis endpoints, both routes
+    an = phase_analyze(dev)
+
+    # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip, and one
+    # 180 s track with the chain-config options of slice 4
     v2, step, wall, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
-                                 "standard", cpu_tracks=(0, BATCH - 1))
+                                 "standard", cpu_tracks=(BATCH - 1,))
     phase_profile(step, wall * 1e3, "v2_180s", reps=2)
     del step
     mono, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
@@ -957,17 +1344,23 @@ def main() -> None:
                                  "edm", cpu_tracks=(0,), reps=10)
     check({"chain:exciter", "chain:imager"} <= set(names),
           f"2 s edm clip: no exciter or imager in {names}")
+    phase_v2(dev, "v2_options_180s", LONG[0], (), 1, 2, "standard",
+             cpu_tracks=(0,), reps=3, options=True)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}
     paths.update(fft_bc_cb=("v2_180s", v2), env_scan=("v2_180s", v2),
                  fft_reduce_stage_a=("v2_mono_180s", mono),
-                 env_rows=("v2_clip_2s", clip))
+                 env_rows=("v2_clip_2s", clip),
+                 fft_bc=("v1_180s_split", v1_split),
+                 fft_cb_multi=("v1_180s_split", v1_split),
+                 fft_cb=("analyze_180s_split", an["analyze_180s_split"]))
     for name, entry in kernels.items():
         label, launches = paths[name]
         check(launches[name] > 0, f"kernel {name} not launched on {label}")
         entry["launches"] = launches[name]
         entry["path"] = label
+    check(len(kernels) == 13, f"{len(kernels)} kernels, expected 13")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     emit({"kernels": [{k: v[k] for k in keys} for v in kernels.values()]})

@@ -178,3 +178,66 @@ def test_unpacked_reduce_raises_on_cuda(cuda_device):
         X * torch.from_numpy(H[k].astype(np.float32)).to(dev), n=nfft,
         dim=-1)[:, :n]) for k in range(4))
     assert _rel(got, want) < REL_REDUCE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_split_stages_cuda_match_plain(cuda_device, nfft, rows):
+    """Kernels 6 (forward B+C), 7 (inverse C+B with and without a
+    response) and 10 (K = 2 and 4 responses) against their plain
+    versions."""
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    xr, xi = (p.to(dev) for p in _planes((rows, nfft), 23, 0.3))
+    resps = _resps(nfft, 4, 24)[1].to(dev)
+    before = tfs.bc_cuda.launches
+    Sr, Si = tfs._stage_bc(xr, xi, nfft, tabs)
+    torch.cuda.synchronize()
+    assert tfs.bc_cuda.launches == before + 1
+    Pr, Pi = tfs.bc_plain(xr, xi, nfft, tabs)
+    assert _rel(Sr, Pr) < REL_STAGE and _rel(Si, Pi) < REL_STAGE
+    for resp in (resps[0], None):
+        before = tfs.cb_cuda.launches
+        gr, gi = tfs._stage_cb(Sr, Si, resp, nfft, tabs)
+        torch.cuda.synchronize()
+        assert tfs.cb_cuda.launches == before + 1
+        wr, wi = tfs.cb_plain(Sr, Si, resp, nfft, tabs)
+        assert _rel(gr, wr) < REL_STAGE and _rel(gi, wi) < REL_STAGE
+    for K in (2, 4):
+        before = tfs.cb_multi_cuda.launches
+        gr, gi = tfs._stage_cb_multi(Sr, Si, resps[:K], nfft, tabs)
+        torch.cuda.synchronize()
+        assert tfs.cb_multi_cuda.launches == before + 1
+        assert gr.shape == (K * rows, nfft)
+        wr, wi = tfs.cb_multi_plain(Sr, Si, resps[:K], nfft, tabs)
+        assert _rel(gr, wr) < REL_STAGE and _rel(gi, wi) < REL_STAGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+def test_split_route_cuda_matches_torch_fft(cuda_device, nfft, monkeypatch):
+    """``AMW_FFT_FUSED_RT=0``: ``apply_response`` (packed and unpacked)
+    and ``roundtrip_multi`` through kernels 6, 7 and 10 against
+    ``torch.fft``, and ``ifft_permuted`` inverting ``fft_permuted``."""
+    monkeypatch.setenv("AMW_FFT_FUSED_RT", "0")
+    dev = cuda_device
+    n = nfft - 2345
+    x = _planes((3, n), 25)[0].to(dev)
+    H, resps = _resps(nfft, 2, 26)
+    resps = resps.to(dev)
+    X = torch.fft.rfft(x, n=nfft, dim=-1)
+    want = [torch.fft.irfft(X * torch.from_numpy(H[k].astype(np.float32))
+                            .to(dev), n=nfft, dim=-1)[:, :n] for k in (0, 1)]
+    fused = (tfs.bc_cb_cuda.launches, tfs.bccb_multi_cuda.launches)
+    for rows in (slice(0, 2), slice(0, 3)):
+        y = tfs.apply_response(x[rows], resps[0], nfft, n_out=n)
+        assert float((y - want[0][rows]).abs().max()) < ABS_RT
+    ys = tfs.roundtrip_multi(x, resps, nfft, n)
+    for k in (0, 1):
+        assert float((ys[k] - want[k]).abs().max()) < ABS_RT
+    assert (tfs.bc_cb_cuda.launches, tfs.bccb_multi_cuda.launches) == fused
+    xr, xi = x[:2], x[1:]
+    yr, yi = tfs.ifft_permuted(*tfs.fft_permuted(xr, xi, nfft), nfft)
+    assert float((yr[:, :n] - xr).abs().max()) < ABS_RT
+    assert float((yi[:, :n] - xi).abs().max()) < ABS_RT

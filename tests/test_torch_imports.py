@@ -109,3 +109,32 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
         fs.bc_cb_cuda(y, y, torch.zeros(2, nfft), nfft, tabs)
     with pytest.raises(ValueError):
         fs.reduce_cuda(y, y, 1, 2, nfft, torch.zeros(1, 8), tabs)
+
+
+def test_slice4_modules_are_checked():
+    """The no-JAX check above covers the analysis suite and the split
+    stages' kernel source is bound."""
+    from amw_tpu_torch.ops import _cuda
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/analyze.py", "ops/meters.py", "ops/fft_staged.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+    for entry in ("amw_fft_bc", "amw_fft_cb", "amw_fft_cb_multi"):
+        stem, _ = _cuda._ENTRIES[entry]
+        assert (_cuda.CSRC / f"{stem}.cu").read_text().count(
+            f'extern "C" int {entry}(') == 1, entry
+
+
+def test_split_kernel_wrappers_refuse_cpu_tensors():
+    from amw_tpu_torch.ops import fft_staged as fs
+
+    nfft = 1 << 19
+    y = torch.zeros(2, nfft)
+    tabs = fs._device_tables(nfft, torch.device("cpu"))
+    with pytest.raises(ValueError):
+        fs.bc_cuda(y, y, nfft, tabs)
+    for resp in (torch.zeros(2, nfft), None):
+        with pytest.raises(ValueError):
+            fs.cb_cuda(y, y, resp, nfft, tabs)
+    with pytest.raises(ValueError):
+        fs.cb_multi_cuda(y, y, torch.zeros(2, 2, nfft), nfft, tabs)

@@ -136,23 +136,33 @@ def test_default_config_and_denoise_resolution_match_jax():
         assert tv2.resolve_denoise(pro) == jv2.resolve_denoise(pro)
 
 
-@pytest.mark.parametrize("module", [
-    {"id": "reverb", "enabled": True},
-    {"id": "true_peak_limiter", "enabled": True},
-    {"id": "target_curve", "phase_mode": "linear_phase"},
-    {"id": "exciter", "exciter_db": 0.6, "oversample": 2},
-    {"id": "dynamics", "compressor": "envelope"},
+@pytest.mark.parametrize("module,ported", [
+    ({"id": "reverb", "enabled": True}, False),
+    ({"id": "true_peak_limiter", "enabled": True}, False),
+    ({"id": "target_curve", "phase_mode": "linear_phase"}, True),
+    ({"id": "exciter", "exciter_db": 0.6, "oversample": 2}, False),
+    ({"id": "dynamics", "compressor": "envelope"}, True),
 ], ids=["reverb", "true_peak", "linear_phase", "exciter_os2",
         "envelope_compressor"])
-def test_unported_module_raises_not_bypassed(module):
+def test_unported_module_raises_not_bypassed(module, ported):
     """An unported op raises and names its ROADMAP item: the chain never
     records it as bypassed and runs on without it, as it would a module
-    whose build fails."""
+    whose build fails.  The ops ported since (the linear-phase target
+    curve, the envelope compressor) build under their own id, as in the
+    JAX package, and are not bypassed either."""
     spec = GraphSpec(sr=SR, n=SR, channels=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchain.build_chain_ops(spec, {"modules": [module]}, device="cpu")
     cfg = tchain.default_chain_config()
     cfg["modules"].insert(3, module)
+    if ported:
+        ids, _, _, byp = tchain.build_chain_ops(spec, {"modules": [module]},
+                                                device="cpu")
+        jids, _, _, jbyp = jchain.build_chain_ops(
+            JSpec(sr=SR, n=SR, channels=2), {"modules": [module]})
+        assert ids == jids == [module["id"]] and byp == jbyp == []
+        assert tv2.build_v2_job_graph(spec, cfg, device="cpu")[2]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tchain.build_chain_ops(spec, {"modules": [module]}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tv2.build_v2_job_graph(spec, cfg, device="cpu")
 
