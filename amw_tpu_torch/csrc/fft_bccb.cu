@@ -1,11 +1,12 @@
 // Forward B+C, K responses, inverse C+B of the staged FFT.
 //
 // Replaces two Pallas TPU kernels of amw_tpu/ops/fft_pallas.py:
-// `_stage_bccb_multi` (body `_stage_bccb_multi_kernel`, C stage
-// `_cstage_fwd` / `_cstage_inv`), entry amw_fft_bccb, and `_stage_bc_cb`
-// (body `_stage_bc_cb_kernel`, the same round trip under one response
-// [2, nfft], the `apply_response` of every zero-phase pass), entry
-// amw_fft_bc_cb: the K = 1 instance of the same three passes.  Input: stage
+// `_stage_bccb_multi` (:684, body `_stage_bccb_multi_kernel` :441, C stage
+// `_cstage_fwd` / `_cstage_inv` :334 / :361), entry amw_fft_bccb, and
+// `_stage_bc_cb` (:658, body `_stage_bc_cb_kernel` :418, the same round
+// trip under one response [2, nfft], the `apply_response` of every
+// zero-phase pass), entry amw_fft_bc_cb: the K = 1 instance of the same
+// three passes.  Input: stage
 // A's output, two planes
 // [R, nfft] viewed [R, 128, 128, C] (a', b, c); responses [K, 2, nfft] in
 // the permuted storage order (k3 = p / c1 + C2 * (p % c1) at position p of a
@@ -26,40 +27,74 @@
 //   1. col_dft128_kernel (fft128.cuh): forward B and T2, x -> scratch z;
 //   2. cstage_multi_kernel: per C-row of z, the forward C-DFT, then for
 //      each response the product and the inverse C-DFT, into out[k]
-//      (fft_cstage.cuh: c_forward, c_inverse_responses);
+//      (fft_creg.cuh: creg_table, creg_rows);
 //   3. col_dft128_kernel: conj T2 and inverse B, in place on out.
 //
 // The split stages (kernels 6, 7, 10 in fft_split.cu) are passes 1-2 and
-// 2-3 of the same design with the spectrum stored in between.
+// 2-3 of the same design with the spectrum stored in between; their C
+// passes still run fft_cstage.cuh's shared-memory radix-2 transforms.
 //
 // Bound on an H100: device-memory bytes.  The fused bound (x read once, K
 // responses read once, K outputs written once) at the 180 s slice's shapes
-// (R = 8, nfft = 2^23) is 1.75 GB (0.52 ms at 3.35 TB/s) at K = 2 and
-// 2.95 GB (0.88 ms) at K = 4.  The split adds the scratch round trip
-// (2 planes written and read, 1.07 GB) and the outputs' round trip through
-// pass 3 (2K planes read and written again, 2.15 GB at K = 2, 4.3 GB at
-// K = 4).  The C stage runs radix-2 transforms of C points on 2048-point
-// groups of rows in shared memory (8 + 8 KB spectrum, 8 + 8 KB work, the
-// C/2 twiddles), so the spectrum is read from z once and each response and
-// output plane streams once; a cluster-fused design that keeps the tile on
-// chip is later work.
+// (R = 8, nfft = 2^23) is 1.14 GB (0.34 ms at 3.35 TB/s) at K = 1, 1.75 GB
+// (0.52 ms) at K = 2 and 2.95 GB (0.88 ms) at K = 4.  The C pass alone
+// moves exactly those bytes (z read once, each response and output plane
+// streamed once), so its bound is the same 0.34 / 0.52 / 0.88 ms; the two B
+// passes add the scratch round trip (2 planes written and read, 1.07 GB)
+// and the outputs' second trip through pass 3 (2K planes read and written
+// again).  A cluster-fused design that keeps the tile on chip is later
+// work.
+//
+// The C pass (fft_creg.cuh) keeps a C-row's points in registers, one warp
+// a row, in the JAX kernel's own factorisation, so the spectrum comes out
+// in the stored order: each response is read where the bin already is,
+// with no gather, no runtime division and no block-wide barrier per stage
+// (one barrier a block, after its twiddle table).  C is a template
+// parameter (one instance per log2 C in 5..10, dispatched in run_bccb);
+// a block of 4 warps walks the C-rows grid-stride, with as many blocks as
+// fit on the card at once.
 #include "fft_cstage.cuh"
+#include "fft_creg.cuh"
 
 using namespace amw_fft;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+template <int kLogC>
+__global__ void __launch_bounds__(kCRegThreads)
 cstage_multi_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
                     const float* __restrict__ resps,
                     float* __restrict__ out_r, float* __restrict__ out_i,
-                    long long plane, long long nfft, int C, int logC, int K) {
-  __shared__ CTile t;
-  const long long base = static_cast<long long>(blockIdx.x) * kCElems;
-  c_twiddles(t, C);
-  c_forward(zr, zi, base, t, C, logC);
-  c_inverse_responses<true>(t, resps, out_r, out_i, base, plane, nfft, C,
-                            logC, K);
+                    long long rows, long long plane, long long nfft, int K) {
+  __shared__ float2 tw[1 << kLogC];
+  creg_table<kLogC>(tw);
+  __syncthreads();
+  creg_rows<kLogC>(zr, zi, resps, out_r, out_i, rows, plane, nfft, K, tw);
+}
+
+// The C pass over R planes of z: grid-stride over the R * nfft / C C-rows,
+// at most as many blocks as are resident on the card together.
+template <int kLogC>
+cudaError_t launch_cstage(const float* zr, const float* zi,
+                          const float* resps, float* out_r, float* out_i,
+                          int R, long long nfft, int K, cudaStream_t st) {
+  const long long rows = R * (nfft >> kLogC);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cstage_multi_kernel<kLogC>, kCRegThreads, 0);
+  if (err != cudaSuccess) return err;
+  long long blocks = (rows + kCRegWarps - 1) / kCRegWarps;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
+  cstage_multi_kernel<kLogC><<<static_cast<unsigned>(blocks), kCRegThreads, 0,
+                               st>>>(zr, zi, resps, out_r, out_i, rows,
+                                     R * nfft, nfft, K);
+  return cudaGetLastError();
 }
 
 // x*: [R, nfft] stage-A output; resps: [K, 2, nfft]; t2*/it2*: [128, C]
@@ -81,10 +116,22 @@ int run_bccb(const float* xr, const float* xi, const float* resps,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  cstage_multi_kernel<<<static_cast<unsigned>(R * nfft / kCElems), kThreads,
-                        0, st>>>(zr, zi, resps, out_r, out_i, R * nfft, nfft,
-                                 C, logC, K);
-  err = cudaGetLastError();
+  // one C-pass instance per log2 C: every index below is a shift or mask
+  switch (logC) {
+    case 5: err = launch_cstage<5>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                   st); break;
+    case 6: err = launch_cstage<6>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                   st); break;
+    case 7: err = launch_cstage<7>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                   st); break;
+    case 8: err = launch_cstage<8>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                   st); break;
+    case 9: err = launch_cstage<9>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                   st); break;
+    case 10: err = launch_cstage<10>(zr, zi, resps, out_r, out_i, R, nfft, K,
+                                     st); break;
+    default: err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
 
   col_dft128_kernel<true, false, kOutPlanes>

@@ -10,16 +10,19 @@ The FFT size rule is the JAX package's CPU rule (:func:`next_fft_size`,
 no TPU preference), so the port and the JAX package on the CPU pick the
 same ``nfft``.  :func:`tpu_fft_plan` is the JAX package's rule on a TPU: a
 power of two the staged FFT takes (:func:`plan_ok`) replaces a smaller
-3·2^k or 5·2^k size.  The builders plan with ``fft_staged.site_plan``,
-which takes the TPU plan where the staged FFT runs (on CUDA) and the CPU
-rule elsewhere, as the JAX package's ``next_fft_size`` does on each
-backend.
+3·2^k or 5·2^k size when it pads by at most ``AMW_FFT_PREFER_PALLAS_MAX``
+(read at each call, default 1.75, as ``amw_tpu.ops.design`` reads it).
+The builders plan with ``fft_staged.site_plan``, which adds that rule's
+last term (the staged FFT is enabled for the power of two) and so takes
+the TPU plan where the staged FFT runs and the CPU rule elsewhere, as the
+JAX package's ``next_fft_size`` does on each backend.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 
@@ -200,10 +203,6 @@ def next_fft_size(n: int) -> int:
     return best
 
 
-# AMW_FFT_PREFER_PALLAS_MAX's default in amw_tpu/ops/design.py.
-_PREFER_PALLAS_MAX = 1.75
-
-
 def plan_ok(nfft: int) -> bool:
     """Does the staged FFT take an ``nfft``-point plan?  ``nfft = 128·128·C``
     with ``C`` a power of two in [32, 1024], i.e. 2^19..2^24."""
@@ -213,14 +212,23 @@ def plan_ok(nfft: int) -> bool:
     return 32 <= c <= 1024 and (c & (c - 1)) == 0
 
 
+def prefer_staged_max() -> float:
+    """The largest padding factor at which a staged power of two replaces
+    a 3·2^k or 5·2^k size: ``AMW_FFT_PREFER_PALLAS_MAX``, read at each
+    call with the JAX package's default."""
+    return float(os.environ.get("AMW_FFT_PREFER_PALLAS_MAX", "1.75"))
+
+
 def tpu_fft_plan(n: int) -> int:
-    """The FFT size the JAX package picks for ``n`` on a TPU: the CPU rule,
-    except that a power of two the Pallas FFT takes replaces a smaller
-    3·2^k or 5·2^k size when it pads by at most 1.75x."""
+    """The FFT size the JAX package picks for ``n`` on a TPU with its
+    Pallas FFT enabled: the CPU rule, except that a power of two the
+    Pallas FFT takes replaces a smaller 3·2^k or 5·2^k size when it pads
+    by at most :func:`prefer_staged_max`.  Where the staged FFT is off,
+    ``fft_staged.site_plan`` keeps the CPU rule instead."""
     best = next_fft_size(n)
     if best & (best - 1):
         pow2 = 1 << (n - 1).bit_length()
         if (plan_ok(pow2) and not plan_ok(best)
-                and pow2 <= _PREFER_PALLAS_MAX * best):
+                and pow2 <= prefer_staged_max() * best):
             return pow2
     return best

@@ -63,14 +63,24 @@ one cache per ``nfft``; ``convert.to_device`` uploads each of them once per
 parameter tree, so the three fused sites of a chain share one copy on the
 card.
 
-Of the JAX module's ``AMW_FFT_*`` switches the port carries one,
-``AMW_FFT_FUSED_RT`` (:func:`fused_rt`, read at call time, default
-``"1"``): ``0`` selects the split route, where ``apply_response``,
-``roundtrip_multi`` and ``roundtrip_multi_reduce`` run ``_stage_bc`` and
-then ``_stage_cb`` / ``_stage_cb_multi`` instead of the fused round trip,
-in both packages alike.  ``AMW_FFT_PACK`` (row packing, always on here)
-and ``AMW_FFT_DOT_PREC`` (the TPU matrix unit's passes) select no kernel
-of the port and are not read; ``AMW_FFT_A_COLS`` tiles the TPU grid only.
+The JAX package's planning and routing switches are read at each call,
+with its defaults, so one variable steers both packages alike:
+
+- ``AMW_FFT_PALLAS`` (:func:`enabled`): unset, the staged FFT runs on
+  CUDA at every :func:`plan_ok` plan and never on the CPU; ``"1"`` takes
+  it on any device (on the CPU through the plain versions), anything else
+  refuses it, and the sites then plan the CPU rule's size on ``torch.fft``;
+- ``AMW_FFT_PREFER_PALLAS_MAX`` (``design.prefer_staged_max``, default
+  1.75): how far :func:`site_plan` pads a 3·2^k or 5·2^k size up to a
+  staged power of two;
+- ``AMW_FFT_FUSED_RT`` (:func:`fused_rt`, default ``"1"``): ``0`` selects
+  the split route, where ``apply_response``, ``roundtrip_multi`` and
+  ``roundtrip_multi_reduce`` run ``_stage_bc`` and then ``_stage_cb`` /
+  ``_stage_cb_multi`` instead of the fused round trip.
+
+``AMW_FFT_PACK`` (row packing, always on here) and ``AMW_FFT_DOT_PREC``
+(the TPU matrix unit's passes) select no kernel of the port and are not
+read; ``AMW_FFT_A_COLS`` tiles the TPU grid only.
 """
 
 from __future__ import annotations
@@ -90,10 +100,16 @@ C1 = 128  # sub-factor of the C axis (C = C2·C1 when C >= 128)
 
 
 def enabled(nfft: int, device) -> bool:
-    """Route this plan through the staged FFT?  On CUDA for every
-    :func:`plan_ok` plan; on the CPU never (tests force it by patching
-    this function)."""
-    return plan_ok(nfft) and torch.device(device).type == "cuda"
+    """Route this plan through the staged FFT?  Never where :func:`plan_ok`
+    refuses it; else ``AMW_FFT_PALLAS == "1"`` when that is set (read at
+    each call, as ``fft_pallas.enabled`` reads it), else on CUDA only —
+    the JAX rule with the card in the TPU's place."""
+    if not plan_ok(nfft):
+        return False
+    flag = os.environ.get("AMW_FFT_PALLAS")
+    if flag is not None:
+        return flag == "1"
+    return torch.device(device).type == "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -870,11 +886,13 @@ def site_plan(n: int, device) -> tuple[int, bool]:
     the TPU plan (``design.tpu_fft_plan``) on the staged FFT where
     :func:`enabled` takes it, else the CPU rule's size
     (``design.next_fft_size``) on ``torch.fft``.  This is the JAX package's
-    ``design.next_fft_size`` on each backend (a power of two its Pallas FFT
-    takes is preferred exactly where that FFT is enabled), so every builder
-    plans with it: the fused sites and fast zero-phase passes run the staged
-    FFT when ``staged``, the exact two-pass filters and the meters
-    ``torch.fft`` at ``nfft`` either way."""
+    ``design.next_fft_size`` on each backend, its ``fp.enabled(pow2)`` term
+    included (a power of two its Pallas FFT takes is preferred exactly
+    where that FFT is enabled, so ``AMW_FFT_PALLAS=0`` plans the CPU rule
+    on the card too), so every builder plans with it: the fused sites and
+    fast zero-phase passes run the staged FFT when ``staged``, the exact
+    two-pass filters and the meters ``torch.fft`` at ``nfft`` either
+    way."""
     plan = design.tpu_fft_plan(n)
     if enabled(plan, device):
         return plan, True

@@ -7,10 +7,13 @@ output of 16 rows of 7 938 000 samples, nfft = 2^23), on one GPU.
 
 It compares two checkouts on one card: run it in the parent's and the
 change's checkout in turns (parent, change, change, parent) within one
-machine.  Prints one JSON line: the checkout, the card's name and power
-limit (``nvidia-smi``), and each kernel's CUDA-event median over 50
-launches after 5 warm-up launches, on the same seeded inputs in every
-checkout.
+machine; it times the package of the directory it runs in, so one copy
+of the script serves both (``cd <parent> && python <change>/amw_tpu_torch/
+scripts/ab_bccb.py``).  Prints one JSON line: the checkout, the card's
+name and power limit (``nvidia-smi``), each kernel's CUDA-event median
+over 50 launches after 5 warm-up launches, and the device time of its C
+pass alone (``cstage_multi_kernel``, torch.profiler over 10 launches,
+ms a launch), on the same seeded inputs in every checkout.
 """
 
 from __future__ import annotations
@@ -49,6 +52,31 @@ def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, name: str, reps: int = 10) -> float:
+    """Device ms per launch of the CUDA kernels whose name holds ``name``
+    over ``reps`` calls of ``fn`` after one warm-up (torch.profiler,
+    CUPTI): one pass of a multi-pass wrapper, timed alone.  The mean is
+    over the launches the profiler recorded, which may miss one; raises
+    when it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            us = getattr(evt, "self_device_time_total", None)
+            total += evt.self_cuda_time_total if us is None else us
+            count += evt.count
+    if not count:
+        raise RuntimeError(f"the profiler recorded no launch of {name}")
+    return total / 1e3 / count
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ab_bccb: needs a CUDA device")
@@ -65,12 +93,14 @@ def main() -> None:
                                                                 NFFT)
                                        for h in H])).to(dev)
     Xr, Xi = fs.stage_a_cuda(x[:ROWS // 2], x[ROWS // 2:], NFFT, False, tabs)
-    out = {"checkout": os.getcwd(), "nvidia_smi": smi,
-           "bc_cb_ms": median_ms(lambda: fs.bc_cb_cuda(Xr, Xi, resps[0], NFFT,
-                                                       tabs))}
+    out = {"checkout": os.getcwd(), "nvidia_smi": smi}
+    calls = {"bc_cb": lambda: fs.bc_cb_cuda(Xr, Xi, resps[0], NFFT, tabs)}
     for K in (2, 4):
-        out[f"bccb_multi_k{K}_ms"] = median_ms(
+        calls[f"bccb_multi_k{K}"] = (
             lambda K=K: fs.bccb_multi_cuda(Xr, Xi, resps[:K], NFFT, tabs))
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = median_ms(fn)
+        out[f"{name}_cpass_ms"] = kernel_ms(fn, "cstage_multi_kernel")
     print(json.dumps(out), flush=True)
 
 

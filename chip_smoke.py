@@ -18,7 +18,9 @@ Phases, each printing JSON lines:
              envelope at the 2 s clip's [16, 88 200]), with CUDA-event
              times (median of 20; the envelope kernels' plain versions one
              run after a warm-up), the bound and a PyTorch library
-             yardstick; the box and env-gain kernels also at the 5 s
+             yardstick; kernels 8 and 9 also their C pass alone
+             (``cstage_multi_kernel``, torch.profiler over 10 launches)
+             beside its bound; the box and env-gain kernels also at the 5 s
              batch's shapes (16 rows of 220 500 samples and that length's
              chunk geometry);
 4. entry   — ``fft_staged.roundtrip_multi`` (K = 2) and
@@ -93,6 +95,7 @@ from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.ops import _cuda, design, fdfilter, meters, scan
 from amw_tpu_torch.ops import fft_staged as fs
 from amw_tpu_torch.ops.bands import BandMap
+from amw_tpu_torch.scripts.ab_bccb import kernel_ms
 
 SR = 44100
 BATCH = 8
@@ -400,23 +403,28 @@ def fft_kernels(dev, g, rows: int, n: int) -> dict:
 
         lib_err = rel_err(lib().reshape(K * R2, nfft).real, Yr)[1]
         ys[K] = (Yr, Yi)
+        nbytes = (2 * R2 * nfft + 2 * K * nfft + 2 * K * R2 * nfft) * 4
         entry = kernel_entry(
             "fft_bccb_multi", "amw_tpu_torch/csrc/fft_bccb.cu",
             "amw_tpu/ops/fft_pallas.py:684", [R2, nfft], err, rel, FFT_REL,
             lambda a9=a9: fs.bccb_multi_cuda(*a9),
-            lambda a9=a9: fs.bccb_multi_plain(*a9),
-            (2 * R2 * nfft + 2 * K * nfft + 2 * K * R2 * nfft) * 4,
+            lambda a9=a9: fs.bccb_multi_plain(*a9), nbytes,
             R2 * nfft * (5 * lg + 6 + K * (6 + 5 * lg + 6)),
             ("torch.fft.fft + K x (mul + torch.fft.ifft) along the joint "
              "(b, c) axis of [8, 128, 65536] complex", lib),
             K=K, library_rel_err=lib_err,
-            split_extra_bytes=(4 * R2 * nfft + 4 * K * R2 * nfft) * 4)
+            split_extra_bytes=(4 * R2 * nfft + 4 * K * R2 * nfft) * 4,
+            # the C pass alone moves the fused bytes: its bound is the same
+            cpass_ms=kernel_ms(lambda a9=a9: fs.bccb_multi_cuda(*a9),
+                                      "cstage_multi_kernel"),
+            cpass_bound_ms=bound_ms(nbytes, 0)[0])
         if K == 2:
             out["fft_bccb_multi"] = entry
         else:
             out["fft_bccb_multi"]["k4"] = {
                 k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "library_ms", "max_rel_err")}
+                                      "library_ms", "max_rel_err",
+                                      "cpass_ms", "cpass_bound_ms")}
     del xc
 
     # -- kernel 5, the packed inverse stage A with the join, K = 2
@@ -520,16 +528,19 @@ def phase_new_kernels(dev) -> dict:
         X = torch.fft.fft(xc, dim=-1)
         return torch.fft.ifft(X * hn, dim=-1, norm="forward")
 
+    nbytes = (4 * R2 * nfft + 2 * nfft) * 4
     out["fft_bc_cb"] = kernel_entry(
         "fft_bc_cb", "amw_tpu_torch/csrc/fft_bccb.cu",
         "amw_tpu/ops/fft_pallas.py:658", [R2, nfft], err, rel, FFT_REL,
-        lambda: fs.bc_cb_cuda(*a8), lambda: fs.bc_cb_plain(*a8),
-        (4 * R2 * nfft + 2 * nfft) * 4,
+        lambda: fs.bc_cb_cuda(*a8), lambda: fs.bc_cb_plain(*a8), nbytes,
         R2 * nfft * (5 * lg + 6 + 6 + 5 * lg + 6),
         ("torch.fft.fft + mul + torch.fft.ifft along the joint (b, c) axis "
          "of [8, 128, 65536] complex", lib8),
         max_rel_err_unpacked=rel_u,
-        unpacked_ms=cuda_ms(lambda: fs.bc_cb_cuda(*u8)))
+        unpacked_ms=cuda_ms(lambda: fs.bc_cb_cuda(*u8)),
+        cpass_ms=kernel_ms(lambda: fs.bc_cb_cuda(*a8),
+                                  "cstage_multi_kernel"),
+        cpass_bound_ms=bound_ms(nbytes, 0)[0])
     del xc, Xr, Xi, Ur, Ui, x, a8, u8
 
     # -- kernel 12: K = 4 band spectra of one mono 180 s row
