@@ -31,8 +31,8 @@
 //   3. col_dft128_kernel: conj T2 and inverse B, in place on out.
 //
 // The split stages (kernels 6, 7, 10 in fft_split.cu) are passes 1-2 and
-// 2-3 of the same design with the spectrum stored in between; their C
-// passes still run fft_cstage.cuh's shared-memory radix-2 transforms.
+// 2-3 of the same design with the spectrum stored in between, on the same
+// register C pass.
 //
 // Bound on an H100: device-memory bytes.  The fused bound (x read once, K
 // responses read once, K outputs written once) at the 180 s slice's shapes
@@ -50,10 +50,10 @@
 // in the stored order: each response is read where the bin already is,
 // with no gather, no runtime division and no block-wide barrier per stage
 // (one barrier a block, after its twiddle table).  C is a template
-// parameter (one instance per log2 C in 5..10, dispatched in run_bccb);
-// a block of 4 warps walks the C-rows grid-stride, with as many blocks as
-// fit on the card at once.
-#include "fft_cstage.cuh"
+// parameter (one instance per log2 C in 5..10, dispatch_log_c); blocks of
+// 4 warps walk the C-rows grid-stride, as many as fit on the card at once
+// (launch_c_pass).
+#include "fft128.cuh"
 #include "fft_creg.cuh"
 
 using namespace amw_fft;
@@ -70,31 +70,6 @@ cstage_multi_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
   creg_table<kLogC>(tw);
   __syncthreads();
   creg_rows<kLogC>(zr, zi, resps, out_r, out_i, rows, plane, nfft, K, tw);
-}
-
-// The C pass over R planes of z: grid-stride over the R * nfft / C C-rows,
-// at most as many blocks as are resident on the card together.
-template <int kLogC>
-cudaError_t launch_cstage(const float* zr, const float* zi,
-                          const float* resps, float* out_r, float* out_i,
-                          int R, long long nfft, int K, cudaStream_t st) {
-  const long long rows = R * (nfft >> kLogC);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cstage_multi_kernel<kLogC>, kCRegThreads, 0);
-  if (err != cudaSuccess) return err;
-  long long blocks = (rows + kCRegWarps - 1) / kCRegWarps;
-  const long long resident =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
-  cstage_multi_kernel<kLogC><<<static_cast<unsigned>(blocks), kCRegThreads, 0,
-                               st>>>(zr, zi, resps, out_r, out_i, rows,
-                                     R * nfft, nfft, K);
-  return cudaGetLastError();
 }
 
 // x*: [R, nfft] stage-A output; resps: [K, 2, nfft]; t2*/it2*: [128, C]
@@ -116,22 +91,11 @@ int run_bccb(const float* xr, const float* xi, const float* resps,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // one C-pass instance per log2 C: every index below is a shift or mask
-  switch (logC) {
-    case 5: err = launch_cstage<5>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                   st); break;
-    case 6: err = launch_cstage<6>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                   st); break;
-    case 7: err = launch_cstage<7>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                   st); break;
-    case 8: err = launch_cstage<8>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                   st); break;
-    case 9: err = launch_cstage<9>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                   st); break;
-    case 10: err = launch_cstage<10>(zr, zi, resps, out_r, out_i, R, nfft, K,
-                                     st); break;
-    default: err = cudaErrorInvalidValue;
-  }
+  const long long rows = R * (nfft >> logC);
+  err = dispatch_log_c(logC, [&](auto lc) {
+    return launch_c_pass(cstage_multi_kernel<decltype(lc)::value>, rows, st,
+                         zr, zi, resps, out_r, out_i, rows, R * nfft, nfft, K);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   col_dft128_kernel<true, false, kOutPlanes>

@@ -1,8 +1,10 @@
-// The C pass of the staged FFT's fused round trips (kernels 8 and 9,
-// fft_bccb.cu): per C-row of the B pass's output, the forward C-DFT into
-// the stored (permuted) order, then for each response the product and the
-// inverse C-DFT back to natural time order.  C-points in registers, one
-// warp per C-row, C a compile-time constant (kLogC 5..10: C = 32..1024).
+// The C pass of the staged FFT's five B/C kernels: the fused round trips
+// (kernels 8 and 9, fft_bccb.cu: forward C-DFT, K responses, inverse) and
+// the split stages (kernels 6, 7 and 10, fft_split.cu: the forward C-DFT
+// into the stored spectrum; the inverse from it under zero, one or K
+// responses).  Per C-row of the B pass's output, C-points in registers,
+// one warp per C-row, C a compile-time constant (kLogC 5..10: C =
+// 32..1024).
 //
 // The JAX kernel's factorisation (amw_tpu/ops/fft_pallas.py `_cstage_fwd`,
 // `_cstage_inv`): C = C2 * c1 with c1 = min(C, 128), a radix-C2 butterfly
@@ -23,14 +25,24 @@
 //   3. across the lanes, a 32-point radix-2 DIF over t by __shfl_xor_sync:
 //      lane l then holds kb = bitrev5(l) of bin k = q + P * kb.
 //
-// Bin k = k2' + C2 * k1 with k1 = ka + 4 kb is stored at p = k2' * c1 + k1
-// (fft_pallas._perm): a compile-time offset per register plus (P / C2) * kb
-// per lane, so the response is read where the bin already is (inside one
-// c1-chunk, whose bytes the warp reads whole) and nothing is gathered or
-// divided at run time.  The inverse runs the adjoint steps in reverse (DIT
-// across the lanes from the bit-reversed lanes to natural t, the conjugate
-// table, DIT in registers to natural j), so the output is stored as the
-// input was loaded.  C < 128 is the case C2 = 1, c1 = C: the same code.
+// Bin k = k2' + C2 * k1 with k1 = ka + V kb (V = P / C2 = min(C, 128) / 32)
+// is stored at p = k2' * c1 + k1 (fft_pallas._perm): the V registers of
+// one k2' hold V consecutive stored positions, k2' * c1 + V kb + [0, V).
+// So a lane moves them as one aligned vector (float4 at C >= 128, float2
+// at 64, a float at 32), a warp covers each c1-chunk's bytes whole, and
+// nothing is gathered or divided at run time.  The inverse runs the
+// adjoint steps in reverse (DIT across the lanes from the bit-reversed
+// lanes to natural t, the conjugate table, DIT in registers to natural
+// j), so its output is stored as the forward's input was loaded.  C < 128
+// is the case C2 = 1, c1 = C: the same code.
+//
+// The pieces, one register layout: creg_forward (natural C-row ->
+// registers), store_stored / load_stored (registers <-> the stored
+// order), creg_responses (for k < K: the product with response k, the
+// inverse, the natural C-row into output k).  The three row walks compose
+// them: creg_rows (8, 9), creg_fwd_rows (6), creg_inv_rows (7, 10).  Their
+// kernels are instances per log2 C launched by launch_c_pass, a grid of
+// the blocks resident on the card walking the C-rows.
 //
 // Why shuffles and not a transpose through shared memory: with P points a
 // lane the 32-point step is five exchanges of 2P floats and no barrier;
@@ -45,6 +57,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace amw_fft {
 
@@ -93,11 +107,12 @@ struct CReg {
   static constexpr int kLogP = kLogC - 5;
   static constexpr int c1 = C < 128 ? C : 128;
   static constexpr int C2 = C / c1;
-  static constexpr int kLaneStride = P / C2;  // stored stride of kb
+  static constexpr int V = P / C2;  // stored stride of kb: 1, 2 or 4
 
-  // Stored position of register r's bin, less kLaneStride * kb.
-  static __device__ __forceinline__ constexpr int pos(int r) {
-    return (rev_bits<kLogP>(r) % C2) * c1 + rev_bits<kLogP>(r) / C2;
+  // The register that holds bin k2' + C2 * (ka + V kb), stored at
+  // k2' * c1 + V kb + ka.
+  static __device__ __forceinline__ constexpr int reg(int k2, int ka) {
+    return rev_bits<kLogP>(k2 + C2 * ka);
   }
 };
 
@@ -242,12 +257,189 @@ __device__ __forceinline__ void creg_table(float2* tw) {
   }
 }
 
-// The C pass over `rows` C-rows of z* (row g at g * C): the forward C-DFT,
-// then for k < K the product with resps[k] (resps [K, 2, nfft], storage
-// order; row g's stored positions at (g * C) mod nfft) and the inverse
-// C-DFT, stored unscaled at out*[k * plane + g * C].  Warp w of the grid
-// takes rows w, w + (warps of the grid), ...; `tw` is creg_table's, built
-// and synchronised by the caller.
+// V consecutive floats at p, aligned to V floats, as one access; the
+// loads through the read-only path (what they read is not written by the
+// kernel).
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// The warp's per-lane constants: its lane, the stored offset of its bins
+// (V * bitrev5(lane)) and the twiddles of the 32-point step.
+struct CRegLane {
+  int lane, pos;
+  float wxr[4], wxi[4];
+};
+
+template <int kLogC>
+__device__ __forceinline__ CRegLane creg_lane() {
+  CRegLane L;
+  L.lane = threadIdx.x & 31;
+  L.pos = CReg<kLogC>::V * rev_bits<5>(L.lane);
+  lane_twiddles(L.lane, L.wxr, L.wxi);
+  return L;
+}
+
+// (a) The C-row at z* (natural order) -> the forward C-DFT in x*: register
+// r of lane l holds the bin stored at k2' * c1 + ka + V * bitrev5(l) for
+// r = CReg::reg(k2', ka).  `tw` is creg_table's.
+template <int kLogC>
+__device__ __forceinline__ void creg_forward(const float* zr, const float* zi,
+                                             const CRegLane& L,
+                                             const float2* tw, float* xr,
+                                             float* xi) {
+  using G = CReg<kLogC>;
+  constexpr int P = G::P;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    xr[j] = zr[L.lane + 32 * j];
+    xi[j] = zi[L.lane + 32 * j];
+  }
+  dif_regs<G::kLogP>(xr, xi);
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    const float2 w = tw[rev_bits<G::kLogP>(r) * 32 + L.lane];
+    const float tr = xr[r] * w.x - xi[r] * w.y;
+    xi[r] = xr[r] * w.y + xi[r] * w.x;
+    xr[r] = tr;
+  }
+  dif_lanes<P>(xr, xi, L.lane, L.wxr, L.wxi);
+}
+
+// (b) x* -> the stored order of the C-row at y*: per chunk k2' one vector
+// of V floats a lane and plane at k2' * c1 + L.pos.
+template <int kLogC>
+__device__ __forceinline__ void store_stored(const float* xr,
+                                             const float* xi,
+                                             const CRegLane& L, float* yr,
+                                             float* yi) {
+  using G = CReg<kLogC>;
+#pragma unroll
+  for (int k2 = 0; k2 < G::C2; ++k2) {
+    float vr[G::V], vi[G::V];
+#pragma unroll
+    for (int ka = 0; ka < G::V; ++ka) {
+      vr[ka] = xr[G::reg(k2, ka)];
+      vi[ka] = xi[G::reg(k2, ka)];
+    }
+    store_vec<G::V>(yr + k2 * G::c1 + L.pos, vr);
+    store_vec<G::V>(yi + k2 * G::c1 + L.pos, vi);
+  }
+}
+
+// The inverse of store_stored: the stored C-row at y* -> x*, as
+// creg_forward leaves them.
+template <int kLogC>
+__device__ __forceinline__ void load_stored(const float* yr, const float* yi,
+                                            const CRegLane& L, float* xr,
+                                            float* xi) {
+  using G = CReg<kLogC>;
+#pragma unroll
+  for (int k2 = 0; k2 < G::C2; ++k2) {
+    float vr[G::V], vi[G::V];
+    load_vec<G::V>(yr + k2 * G::c1 + L.pos, vr);
+    load_vec<G::V>(yi + k2 * G::c1 + L.pos, vi);
+#pragma unroll
+    for (int ka = 0; ka < G::V; ++ka) {
+      xr[G::reg(k2, ka)] = vr[ka];
+      xi[G::reg(k2, ka)] = vi[ka];
+    }
+  }
+}
+
+// (c) For k < K: y = x times response k (with kResp; resps [K, 2, nfft] in
+// the stored order, hr = resps + the C-row's offset in its signal row),
+// or x itself (without: K = 1, hr unread), then the inverse C-DFT, stored
+// unscaled in natural order at out*[k * plane].
+template <int kLogC, bool kResp>
+__device__ __forceinline__ void creg_responses(
+    const float* xr, const float* xi, const float* hr, long long nfft, int K,
+    const CRegLane& L, const float2* tw, float* out_r, float* out_i,
+    long long plane) {
+  using G = CReg<kLogC>;
+  constexpr int P = G::P;
+  hr += L.pos;
+  for (int k = 0; k < (kResp ? K : 1); ++k, hr += 2 * nfft) {
+    float yr[P], yi[P];
+    if constexpr (kResp) {
+#pragma unroll
+      for (int k2 = 0; k2 < G::C2; ++k2) {
+        float h0[G::V], h1[G::V];
+        load_vec<G::V>(hr + k2 * G::c1, h0);
+        load_vec<G::V>(hr + nfft + k2 * G::c1, h1);
+#pragma unroll
+        for (int ka = 0; ka < G::V; ++ka) {
+          const int r = G::reg(k2, ka);
+          yr[r] = xr[r] * h0[ka] - xi[r] * h1[ka];
+          yi[r] = xr[r] * h1[ka] + xi[r] * h0[ka];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        yr[r] = xr[r];
+        yi[r] = xi[r];
+      }
+    }
+    dit_lanes_conj<P>(yr, yi, L.lane, L.wxr, L.wxi);
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const float2 w = tw[rev_bits<G::kLogP>(r) * 32 + L.lane];
+      const float tr = yr[r] * w.x + yi[r] * w.y;  // times conj(W)
+      yi[r] = yi[r] * w.x - yr[r] * w.y;
+      yr[r] = tr;
+    }
+    dit_regs_conj<G::kLogP>(yr, yi);
+    float* orr = out_r + k * plane + L.lane;
+    float* ori = out_i + k * plane + L.lane;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      orr[32 * j] = yr[j];
+      ori[32 * j] = yi[j];
+    }
+  }
+}
+
+// The grid's walk over C-rows: warp w of the grid takes rows w, w + (warps
+// of the grid), ...
+__device__ __forceinline__ long long creg_first_row() {
+  return static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+         (threadIdx.x >> 5);
+}
+
+__device__ __forceinline__ long long creg_row_step() {
+  return static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+}
+
+// Kernels 8 and 9: over `rows` C-rows of z* (row g at g * C), the forward
+// C-DFT, then for k < K the product with resps[k] (resps [K, 2, nfft],
+// stored order; row g's stored positions at (g * C) mod nfft) and the
+// inverse C-DFT, stored unscaled at out*[k * plane + g * C].  `tw` is
+// creg_table's, built and synchronised by the caller.
 template <int kLogC>
 __device__ __forceinline__ void creg_rows(
     const float* __restrict__ zr, const float* __restrict__ zi,
@@ -255,61 +447,104 @@ __device__ __forceinline__ void creg_rows(
     float* __restrict__ out_i, long long rows, long long plane,
     long long nfft, int K, const float2* tw) {
   using G = CReg<kLogC>;
-  constexpr int P = G::P;
-  const int lane = threadIdx.x & 31;
-  float wxr[4], wxi[4];
-  lane_twiddles(lane, wxr, wxi);
-  const int lane_pos = G::kLaneStride * rev_bits<5>(lane);
-  const long long warps =
-      static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
-  for (long long g = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
-                     (threadIdx.x >> 5);
-       g < rows; g += warps) {
+  const CRegLane L = creg_lane<kLogC>();
+  for (long long g = creg_first_row(); g < rows; g += creg_row_step()) {
     const long long base = g * G::C;
-    float xr[P], xi[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      xr[j] = zr[base + lane + 32 * j];
-      xi[j] = zi[base + lane + 32 * j];
-    }
-    dif_regs<G::kLogP>(xr, xi);
-#pragma unroll
-    for (int r = 0; r < P; ++r) {
-      const float2 w = tw[rev_bits<G::kLogP>(r) * 32 + lane];
-      const float tr = xr[r] * w.x - xi[r] * w.y;
-      xi[r] = xr[r] * w.y + xi[r] * w.x;
-      xr[r] = tr;
-    }
-    dif_lanes<P>(xr, xi, lane, wxr, wxi);
-
-    const float* hr = resps + (base & (nfft - 1)) + lane_pos;
-    for (int k = 0; k < K; ++k, hr += 2 * nfft) {
-      float yr[P], yi[P];
-#pragma unroll
-      for (int r = 0; r < P; ++r) {
-        const float h0 = __ldg(hr + G::pos(r));
-        const float h1 = __ldg(hr + nfft + G::pos(r));
-        yr[r] = xr[r] * h0 - xi[r] * h1;
-        yi[r] = xr[r] * h1 + xi[r] * h0;
-      }
-      dit_lanes_conj<P>(yr, yi, lane, wxr, wxi);
-#pragma unroll
-      for (int r = 0; r < P; ++r) {
-        const float2 w = tw[rev_bits<G::kLogP>(r) * 32 + lane];
-        const float tr = yr[r] * w.x + yi[r] * w.y;  // times conj(W)
-        yi[r] = yi[r] * w.x - yr[r] * w.y;
-        yr[r] = tr;
-      }
-      dit_regs_conj<G::kLogP>(yr, yi);
-      float* orr = out_r + k * plane + base + lane;
-      float* ori = out_i + k * plane + base + lane;
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        orr[32 * j] = yr[j];
-        ori[32 * j] = yi[j];
-      }
-    }
+    float xr[G::P], xi[G::P];
+    creg_forward<kLogC>(zr + base, zi + base, L, tw, xr, xi);
+    creg_responses<kLogC, true>(xr, xi, resps + (base & (nfft - 1)), nfft,
+                                K, L, tw, out_r + base, out_i + base, plane);
   }
+}
+
+// Kernel 6: the forward C-DFT of each C-row of y*, written back over it in
+// the stored order.  In place is safe: a warp holds its whole C-row in
+// registers before it writes, and the stored order permutes only within
+// that C-row.
+template <int kLogC>
+__device__ __forceinline__ void creg_fwd_rows(float* yr, float* yi,
+                                              long long rows,
+                                              const float2* tw) {
+  using G = CReg<kLogC>;
+  const CRegLane L = creg_lane<kLogC>();
+  for (long long g = creg_first_row(); g < rows; g += creg_row_step()) {
+    const long long base = g * G::C;
+    float xr[G::P], xi[G::P];
+    creg_forward<kLogC>(yr + base, yi + base, L, tw, xr, xi);
+    store_stored<kLogC>(xr, xi, L, yr + base, yi + base);
+  }
+}
+
+// Kernels 7 and 10: each stored C-row of X* (read once) under K responses
+// (kResp; none and K = 1 without), the inverse C-DFT, stored unscaled at
+// out*[k * plane + g * C].  The walk is position-major: the grid's
+// consecutive warps take one C-row position in each of the R signal rows,
+// so the response segment they share comes from device memory once and
+// from L2 for the others (a response plane, 32 MB at nfft = 2^23, does
+// not stay in L2 while a signal row streams by).
+template <int kLogC, bool kResp>
+__device__ __forceinline__ void creg_inv_rows(
+    const float* __restrict__ Xr, const float* __restrict__ Xi,
+    const float* __restrict__ resps, float* __restrict__ out_r,
+    float* __restrict__ out_i, long long rows, long long plane,
+    long long nfft, int K, const float2* tw) {
+  using G = CReg<kLogC>;
+  const CRegLane L = creg_lane<kLogC>();
+  const long long per_row = nfft >> kLogC;  // C-rows a signal row
+  const long long R = rows / per_row;
+  for (long long w = creg_first_row(); w < rows; w += creg_row_step()) {
+    const long long base = ((w % R) * per_row + w / R) * G::C;
+    float xr[G::P], xi[G::P];
+    load_stored<kLogC>(Xr + base, Xi + base, L, xr, xi);
+    creg_responses<kLogC, kResp>(xr, xi, resps + (base & (nfft - 1)), nfft,
+                                 K, L, tw, out_r + base, out_i + base,
+                                 plane);
+  }
+}
+
+// log2 of a C the B/C kernels take (a power of two in [32, 1024]), or -1.
+inline int c_log2(int C) {
+  if (C < 32 || C > 1024 || (C & (C - 1))) return -1;
+  int logC = 0;
+  while ((1 << logC) < C) ++logC;
+  return logC;
+}
+
+// f(std::integral_constant<int, logC>{}) for the C-pass instance of logC
+// (c_log2's): every index of an instance is a shift or a mask.
+template <typename F>
+cudaError_t dispatch_log_c(int logC, F&& f) {
+  switch (logC) {
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 10: return f(std::integral_constant<int, 10>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Launches a C-pass kernel over `rows` C-rows: blocks of kCRegWarps warps,
+// at most as many as are resident on the card together, walk the rows
+// grid-stride.
+template <typename... Params, typename... Args>
+cudaError_t launch_c_pass(void (*kernel)(Params...), long long rows,
+                          cudaStream_t st, Args... args) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kCRegThreads, 0);
+  if (err != cudaSuccess) return err;
+  long long blocks = (rows + kCRegWarps - 1) / kCRegWarps;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
+  kernel<<<static_cast<unsigned>(blocks), kCRegThreads, 0, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace amw_fft

@@ -20,58 +20,67 @@
 // C-row (fft_pallas._perm), responses the same order.
 //
 // Design: the passes of the fused kernels' design (b) (fft_bccb.cu), with
-// the spectrum stored between them:
+// the spectrum stored between them, on the same register C pass
+// (fft_creg.cuh: one warp a C-row, one instance per log2 C in 5..10,
+// dispatch_log_c and launch_c_pass as kernels 8 and 9 have them):
 //
-//   amw_fft_bc:        col_dft128_kernel (forward B, T2) x -> out, then
-//                      cstage_fwd_kernel in place on out (fft_cstage.cuh:
-//                      c_forward, c_store_permuted);
-//   amw_fft_cb(_multi): cstage_inv_kernel X -> out[k] (c_load_permuted
-//                      reads each block of the spectrum once, then
-//                      c_inverse_responses loops over the K responses, as
-//                      the Pallas kernel does), then col_dft128_kernel
-//                      (conj T2, inverse B) in place on out.
+//   amw_fft_bc:         col_dft128_kernel (forward B, T2) x -> out, then
+//                       cstage_fwd_kernel in place on out (creg_forward,
+//                       store_stored: the registers leave the forward in
+//                       the stored order, written back as vectors);
+//   amw_fft_cb(_multi): cstage_inv_kernel X -> out[k] (load_stored reads
+//                       each stored C-row once into registers, then
+//                       creg_responses loops over the K responses, as the
+//                       Pallas kernel does; the C-rows walked
+//                       position-major, creg_inv_rows), then
+//                       col_dft128_kernel (conj T2, inverse B) in place on
+//                       out.
 //
-// Neither needs a scratch buffer: the C pass of amw_fft_bc reads its whole
-// block before its first barrier and writes back over it.
+// Neither needs a scratch buffer: a warp of cstage_fwd_kernel holds its
+// whole C-row in registers before it writes, and the stored order permutes
+// only within the C-row.
 //
 // Bound on an H100: device-memory bytes (~90 f32 flops a point against
 // 16-24 bytes).  At the split v1 batch's shapes (R = 8 packed rows,
-// nfft = 2^23): kernel 6 reads and writes two planes, 1.07 GB (0.32 ms at
-// 3.35 TB/s); kernel 10 at K = 2 reads two planes and two responses and
-// writes 2K planes, 1.74 GB (0.52 ms); kernel 7 on one packed row reads two
-// planes and a response and writes two planes, 0.20 GB (0.06 ms).  Design
-// (b) moves each plane through device memory once more (the in-place
-// second pass of each entry), so it sits above these bounds, as kernels 8
-// and 9 do.
-#include "fft_cstage.cuh"
+// nfft = 2^23, C = 512): kernel 6 reads and writes two planes, 1.07 GB
+// (0.32 ms at 3.35 TB/s); kernel 7 reads two planes and a response and
+// writes two planes, 1.14 GB (0.34 ms; one unpacked row 0.20 GB, 0.06
+// ms); kernel 10 reads two planes and K responses and writes 2K planes,
+// 1.75 GB (0.52 ms) at K = 2 and 2.95 GB (0.88 ms) at K = 4.  Each C pass
+// alone moves the same bytes as its kernel, so its bound is the same; it
+// reaches them only if the R rows share each response read, hence the
+// position-major walk (row-major, each row streamed the responses again:
+// 0.54 GB more a response at these shapes).
+// Design (b) moves each plane through device memory once more (the
+// in-place second pass of each entry), so it sits above these bounds, as
+// kernels 8 and 9 do.
+#include "fft128.cuh"
+#include "fft_creg.cuh"
 
 using namespace amw_fft;
 
 namespace {
 
-// Block: kCElems points of y from blockIdx.x * kCElems; y may be z.
-__global__ void __launch_bounds__(kThreads)
-cstage_fwd_kernel(const float* zr, const float* zi, float* yr, float* yi,
-                  int C, int logC) {
-  __shared__ CTile t;
-  const long long base = static_cast<long long>(blockIdx.x) * kCElems;
-  c_twiddles(t, C);
-  c_forward(zr, zi, base, t, C, logC);
-  c_store_permuted(t, yr, yi, base, C);
+template <int kLogC>
+__global__ void __launch_bounds__(kCRegThreads)
+cstage_fwd_kernel(float* yr, float* yi, long long rows) {
+  __shared__ float2 tw[1 << kLogC];
+  creg_table<kLogC>(tw);
+  __syncthreads();
+  creg_fwd_rows<kLogC>(yr, yi, rows, tw);
 }
 
-template <bool kResp>
-__global__ void __launch_bounds__(kThreads)
+template <int kLogC, bool kResp>
+__global__ void __launch_bounds__(kCRegThreads)
 cstage_inv_kernel(const float* __restrict__ Xr, const float* __restrict__ Xi,
                   const float* __restrict__ resps, float* __restrict__ out_r,
-                  float* __restrict__ out_i, long long plane, long long nfft,
-                  int C, int logC, int K) {
-  __shared__ CTile t;
-  const long long base = static_cast<long long>(blockIdx.x) * kCElems;
-  c_twiddles(t, C);
-  c_load_permuted(Xr, Xi, base, t, C);
-  c_inverse_responses<kResp>(t, resps, out_r, out_i, base, plane, nfft, C,
-                             logC, K);
+                  float* __restrict__ out_i, long long rows, long long plane,
+                  long long nfft, int K) {
+  __shared__ float2 tw[1 << kLogC];
+  creg_table<kLogC>(tw);
+  __syncthreads();
+  creg_inv_rows<kLogC, kResp>(Xr, Xi, resps, out_r, out_i, rows, plane, nfft,
+                              K, tw);
 }
 
 // x*: [R, nfft] stage-A output; t2*: forward T2 [128, C]; out*: [R, nfft].
@@ -91,9 +100,11 @@ int run_bc(const float* xr, const float* xi, const float* t2r,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  cstage_fwd_kernel<<<static_cast<unsigned>(R * nfft / kCElems), kThreads, 0,
-                      st>>>(out_r, out_i, out_r, out_i, C, logC);
-  return static_cast<int>(cudaGetLastError());
+  const long long rows = R * (nfft >> logC);
+  return static_cast<int>(dispatch_log_c(logC, [&](auto lc) {
+    return launch_c_pass(cstage_fwd_kernel<decltype(lc)::value>, rows, st,
+                         out_r, out_i, rows);
+  }));
 }
 
 // X*: [R, nfft] stored spectrum; resps: [K, 2, nfft] (unread without
@@ -107,16 +118,18 @@ int run_cb(const float* Xr, const float* Xi, const float* resps,
   const long long bc = static_cast<long long>(kN) * C;
   const long long nfft = kN * bc;
   const int strips = C / kCols;
-  const unsigned blocks = static_cast<unsigned>(R * nfft / kCElems);
 
-  if (with_resp) {
-    cstage_inv_kernel<true><<<blocks, kThreads, 0, st>>>(
-        Xr, Xi, resps, out_r, out_i, R * nfft, nfft, C, logC, K);
-  } else {
-    cstage_inv_kernel<false><<<blocks, kThreads, 0, st>>>(
-        Xr, Xi, resps, out_r, out_i, R * nfft, nfft, C, logC, K);
-  }
-  const cudaError_t err = cudaGetLastError();
+  const long long rows = R * (nfft >> logC);
+  const cudaError_t err = dispatch_log_c(logC, [&](auto lc) {
+    constexpr int kLogC = decltype(lc)::value;
+    return with_resp
+               ? launch_c_pass(cstage_inv_kernel<kLogC, true>, rows, st, Xr,
+                               Xi, resps, out_r, out_i, rows, R * nfft, nfft,
+                               K)
+               : launch_c_pass(cstage_inv_kernel<kLogC, false>, rows, st, Xr,
+                               Xi, resps, out_r, out_i, rows, R * nfft, nfft,
+                               K);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   col_dft128_kernel<true, false, kOutPlanes>

@@ -467,6 +467,9 @@ def _bc_args(name, xr, xi, resps, resp_shape, nfft, tables,
             raise ValueError(f"{name}: tensors must share one device")
     if xi.device != dev:
         raise ValueError(f"{name}: tensors must share one device")
+    # the C pass moves the stored order as 16-byte vectors
+    if any(t.data_ptr() % 16 for t in (xr, xi, resps) if t is not None):
+        raise ValueError(f"{name}: tensors must start 16-byte aligned")
     return sum((_check_tables(name, tables, nfft, inverse, dev)[2:]
                 for inverse in directions), ())
 

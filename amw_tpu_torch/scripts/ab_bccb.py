@@ -1,7 +1,10 @@
-"""Time the staged FFT's fused B/C kernels (8 ``bc_cb_cuda`` and 9
-``bccb_multi_cuda`` at K = 2 and 4) of the ``amw_tpu_torch`` package found
+"""Time the staged FFT's B/C kernels of the ``amw_tpu_torch`` package found
 in the current directory, at the 180 s batch's shapes (the packed stage-A
-output of 16 rows of 7 938 000 samples, nfft = 2^23), on one GPU.
+output of 16 rows of 7 938 000 samples, nfft = 2^23, C = 512), on one GPU:
+the fused round trips, 8 ``bc_cb_cuda`` and 9 ``bccb_multi_cuda`` at K = 2
+and 4, and the split stages, 6 ``bc_cuda``, 7 ``cb_cuda`` (one response,
+none, and one response on one unpacked row) and 10 ``cb_multi_cuda`` at
+K = 2 and 4.
 
     cd <checkout> && python <this file>
 
@@ -10,10 +13,11 @@ change's checkout in turns (parent, change, change, parent) within one
 machine; it times the package of the directory it runs in, so one copy
 of the script serves both (``cd <parent> && python <change>/amw_tpu_torch/
 scripts/ab_bccb.py``).  Prints one JSON line: the checkout, the card's
-name and power limit (``nvidia-smi``), each kernel's CUDA-event median
-over 50 launches after 5 warm-up launches, and the device time of its C
-pass alone (``cstage_multi_kernel``, torch.profiler over 10 launches,
-ms a launch), on the same seeded inputs in every checkout.
+name and power limit (``nvidia-smi``), each call's CUDA-event median
+over 50 launches after 20 warm-up launches, and the device time of its C
+pass alone (``cstage_multi_kernel``, ``cstage_fwd_kernel`` or
+``cstage_inv_kernel``: torch.profiler over 10 launches, ms a launch), on
+the same seeded inputs in every checkout.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ NFFT = 1 << 23
 ROWS, N = 16, 7_938_000
 
 
-def median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+def median_ms(fn, reps: int = 50, warmup: int = 20) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,13 +98,29 @@ def main() -> None:
                                        for h in H])).to(dev)
     Xr, Xi = fs.stage_a_cuda(x[:ROWS // 2], x[ROWS // 2:], NFFT, False, tabs)
     out = {"checkout": os.getcwd(), "nvidia_smi": smi}
-    calls = {"bc_cb": lambda: fs.bc_cb_cuda(Xr, Xi, resps[0], NFFT, tabs)}
+    fused, split = "cstage_multi_kernel", "cstage_inv_kernel"
+    calls = {"bc_cb": (fused,
+                       lambda: fs.bc_cb_cuda(Xr, Xi, resps[0], NFFT, tabs))}
     for K in (2, 4):
         calls[f"bccb_multi_k{K}"] = (
+            fused,
             lambda K=K: fs.bccb_multi_cuda(Xr, Xi, resps[:K], NFFT, tabs))
-    for name, fn in calls.items():
+    Sr, Si = fs.bc_cuda(Xr, Xi, NFFT, tabs)
+    Ur, Ui = fs.bc_cuda(*fs.stage_a_cuda(x[:1], None, NFFT, False, tabs,
+                                         real_in=True), NFFT, tabs)
+    calls["bc"] = ("cstage_fwd_kernel",
+                   lambda: fs.bc_cuda(Xr, Xi, NFFT, tabs))
+    calls["cb"] = (split, lambda: fs.cb_cuda(Sr, Si, resps[0], NFFT, tabs))
+    calls["cb_none"] = (split, lambda: fs.cb_cuda(Sr, Si, None, NFFT, tabs))
+    calls["cb_unpacked"] = (
+        split, lambda: fs.cb_cuda(Ur, Ui, resps[0], NFFT, tabs))
+    for K in (2, 4):
+        calls[f"cb_multi_k{K}"] = (
+            split,
+            lambda K=K: fs.cb_multi_cuda(Sr, Si, resps[:K], NFFT, tabs))
+    for name, (cpass, fn) in calls.items():
         out[f"{name}_ms"] = median_ms(fn)
-        out[f"{name}_cpass_ms"] = kernel_ms(fn, "cstage_multi_kernel")
+        out[f"{name}_cpass_ms"] = kernel_ms(fn, cpass)
     print(json.dumps(out), flush=True)
 
 

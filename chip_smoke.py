@@ -18,8 +18,9 @@ Phases, each printing JSON lines:
              envelope at the 2 s clip's [16, 88 200]), with CUDA-event
              times (median of 20; the envelope kernels' plain versions one
              run after a warm-up), the bound and a PyTorch library
-             yardstick; kernels 8 and 9 also their C pass alone
-             (``cstage_multi_kernel``, torch.profiler over 10 launches)
+             yardstick; the five B/C kernels (6-10) also their C pass
+             alone (``cstage_multi_kernel``, ``cstage_fwd_kernel``,
+             ``cstage_inv_kernel``: torch.profiler over 10 launches)
              beside its bound; the box and env-gain kernels also at the 5 s
              batch's shapes (16 rows of 220 500 samples and that length's
              chunk geometry);
@@ -653,7 +654,10 @@ def phase_split_kernels(dev) -> dict:
         lambda: fs.bc_cuda(*a6), lambda: fs.bc_plain(*a6),
         4 * R2 * nfft * 4 + t2_bytes, R2 * nfft * (5 * lg + 6),
         ("torch.fft.fft along the joint (b, c) axis of [8, 128, 65536] "
-         "complex", lambda: torch.fft.fft(xc, dim=-1)))
+         "complex", lambda: torch.fft.fft(xc, dim=-1)),
+        # the C pass alone moves the kernel's bytes but the T2 table
+        cpass_ms=kernel_ms(lambda: fs.bc_cuda(*a6), "cstage_fwd_kernel"),
+        cpass_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0])
     # the yardstick's spectrum in natural order, the responses gathered
     Xn = torch.fft.fft(xc, dim=-1)
     del xc
@@ -706,7 +710,9 @@ def phase_split_kernels(dev) -> dict:
         max_rel_err_unpacked=rel_u,
         unpacked_ms=cuda_ms(lambda: fs.cb_cuda(*u7)),
         unpacked_bound_ms=bound_ms((4 * nfft + 2 * nfft) * 4 + t2_bytes,
-                                   nfft * (6 + 5 * lg + 6))[0])
+                                   nfft * (6 + 5 * lg + 6))[0],
+        cpass_ms=kernel_ms(lambda: fs.cb_cuda(*a7), "cstage_inv_kernel"),
+        cpass_bound_ms=bound_ms((4 * R2 * nfft + 2 * nfft) * 4, 0)[0])
     del Ur, Ui, u7
 
     # -- kernel 10: one stored spectrum under K responses
@@ -723,21 +729,25 @@ def phase_split_kernels(dev) -> dict:
         def lib10(K=K):
             return torch.fft.ifft(Xn[None] * hn[:K], dim=-1, norm="forward")
 
+        nbytes = (2 * R2 * nfft + 2 * K * nfft + 2 * K * R2 * nfft) * 4
         entry = kernel_entry(
             "fft_cb_multi", "amw_tpu_torch/csrc/fft_split.cu",
             "amw_tpu/ops/fft_pallas.py:718", [R2, nfft], err, rel, FFT_REL,
             lambda a10=a10: fs.cb_multi_cuda(*a10),
-            lambda a10=a10: fs.cb_multi_plain(*a10),
-            (2 * R2 * nfft + 2 * K * nfft + 2 * K * R2 * nfft) * 4 + t2_bytes,
+            lambda a10=a10: fs.cb_multi_plain(*a10), nbytes + t2_bytes,
             R2 * nfft * K * (6 + 5 * lg + 6),
             ("K x (mul + torch.fft.ifft) along the joint (b, c) axis of "
-             "[8, 128, 65536] complex", lib10), K=K)
+             "[8, 128, 65536] complex", lib10), K=K,
+            cpass_ms=kernel_ms(lambda a10=a10: fs.cb_multi_cuda(*a10),
+                               "cstage_inv_kernel"),
+            cpass_bound_ms=bound_ms(nbytes, 0)[0])
         if K == 2:
             out["fft_cb_multi"] = entry
         else:
             out["fft_cb_multi"]["k4"] = {
                 k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "library_ms", "max_rel_err")}
+                                      "library_ms", "max_rel_err",
+                                      "cpass_ms", "cpass_bound_ms")}
     return out
 
 

@@ -248,6 +248,51 @@ def test_split_stages_cuda_match_plain(cuda_device, nfft, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nfft", ALL_SIZES)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_split_forward_then_inverse_cuda_is_identity(cuda_device, nfft,
+                                                     rows):
+    """Kernel 6, then kernel 7 with no response: the forward and inverse
+    instances of the register C pass at this plan's C, held against each
+    other as adjoints.  Every B and C pass is unscaled (the 1/nfft sits in
+    the inverse stage A), so the pair returns its input times 128 * C."""
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    xr, xi = (p.to(dev) for p in _planes((rows, nfft), 32 + rows, 0.3))
+    before = (tfs.bc_cuda.launches, tfs.cb_cuda.launches)
+    gr, gi = tfs._stage_cb(*tfs._stage_bc(xr, xi, nfft, tabs), None, nfft,
+                           tabs)
+    torch.cuda.synchronize()
+    assert (tfs.bc_cuda.launches, tfs.cb_cuda.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    scale = tfs.B * (nfft // (tfs.A * tfs.B))  # 128 * C
+    assert _rel(gr, scale * xr) < REL_STAGE
+    assert _rel(gi, scale * xi) < REL_STAGE
+
+
+@pytest.mark.cuda
+def test_bc_kernels_refuse_unaligned_planes(cuda_device):
+    """The C pass moves the stored order as 16-byte vectors: a contiguous
+    plane that starts 4 bytes off is refused, not read misaligned."""
+    nfft = 1 << 19
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    buf = torch.zeros(2 * nfft + 4, device=dev)
+    off = buf[1:1 + nfft].view(1, nfft)
+    ok = torch.zeros(1, nfft, device=dev)
+    resp = torch.ones(2, nfft, device=dev)
+    for call in (lambda: tfs.bc_cuda(off, ok, nfft, tabs),
+                 lambda: tfs.cb_cuda(ok, off, None, nfft, tabs),
+                 lambda: tfs.cb_cuda(ok, ok, buf[1:1 + 2 * nfft].view(2, nfft),
+                                     nfft, tabs),
+                 lambda: tfs.cb_multi_cuda(off, ok, resp[None], nfft, tabs),
+                 lambda: tfs.bc_cb_cuda(off, ok, resp, nfft, tabs)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    tfs.cb_cuda(*tfs.bc_cuda(ok, ok, nfft, tabs), resp, nfft, tabs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
 def test_split_route_cuda_matches_torch_fft(cuda_device, nfft, monkeypatch):
     """``AMW_FFT_FUSED_RT=0``: ``apply_response`` (packed and unpacked)
     and ``roundtrip_multi`` through kernels 6, 7 and 10 against
