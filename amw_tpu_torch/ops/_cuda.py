@@ -40,6 +40,7 @@ _ENTRIES = {
     "amw_env_gain": ("env_gain", "pppiiiiifffff"),
     "amw_env_scan": ("env_scan", "ppiiiiiff"),
     "amw_env_rows": ("env_scan", "ppiiff"),
+    "amw_env_step_clock": ("env_scan", "ppiff"),
     "amw_fft_stage_a": ("fft_stage_a", "ppppppiiiiiiif"),
     "amw_fft_inv_join": ("fft_stage_a", "pppppiiif"),
     "amw_fft_bccb": ("fft_bccb", "pppppppppppiii"),

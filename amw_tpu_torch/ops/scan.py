@@ -19,7 +19,8 @@ for a tensor on the CPU:
   / :func:`env_gain_plain` (replaces ``_win_scan_pallas`` in gain mode);
 - :func:`envelope_follower`, the route the JAX package takes for long
   signals: the chunked envelope ``csrc/env_scan.cu`` ``amw_env_scan`` /
-  :func:`env_scan_plain` (replaces ``_win_scan_pallas`` in envelope mode);
+  :func:`env_scan_plain` (replaces ``_win_scan_pallas`` in envelope mode),
+  on the card at :func:`scan_geometry`'s chunks;
 - its route for short signals (``n <= max(2·W, 2·min_chunk)``, the JAX
   package's ``_env_blocks``): the exact recurrence along each row,
   ``amw_env_rows`` / :func:`env_rows_plain` (replaces ``_env_pallas``).
@@ -78,6 +79,65 @@ def chunk_geometry(rows: int, n: int, w0: int,
     if w0 + C >= n:
         return 0, max(n, 1), 1
     return w0, C, -(-n // C)
+
+
+# The chunked envelope kernel (csrc/env_scan.cu ``amw_env_scan``): chunks a
+# block (its scanning warp), steps a staged tile (:func:`scan_geometry` cuts
+# chunks in multiples of it) and blocks resident on one SM (its 51 KB of
+# shared memory against an H100 SM's 227 KB).
+SCAN_CHUNKS_PER_BLOCK = 32
+SCAN_TILE = 128
+SCAN_BLOCKS_PER_SM = 4
+# Its geometry model: tau, one dependent step of the recurrence (14.19
+# clock64 cycles of one warp at the 1980 MHz maximum SM clock of an H100
+# 80GB HBM3: chip_smoke.py's env_step phase), and the card's HBM rate.
+STEP_NS = 7.17
+HBM_BYTES_PER_S = 3.35e12
+
+
+def scan_geometry(rows: int, n: int, w0: int,
+                  sms: int) -> tuple[int, int, int]:
+    """``(W, C, K)`` for the chunked envelope kernel on a card with ``sms``
+    SMs: ``rows`` sequences of ``n`` samples with warm-up ``w0``.
+
+    C is the multiple of :data:`SCAN_TILE` that minimises the model
+
+        time(C) = max(waves · (w0 + C) · tau,
+                      per_sm · 32 · 4 B · (w0 + 2·C) / (3.35 TB/s / sms)),
+
+    K = ceil(n / C), tau = :data:`STEP_NS`: the serial depth of one chunk
+    against the bytes of the busiest SM.  A block of
+    :data:`SCAN_CHUNKS_PER_BLOCK` chunks reads each chunk's warm-up and
+    body window (from device memory: the overlapping windows of a long
+    signal do not stay in the 50 MB L2) and writes its body; ``per_sm`` is
+    the most blocks an SM gets, ceil(blocks / sms), since blocks on one SM
+    share that SM's part of the card's HBM rate and the kernel waits for
+    the busiest SM; ``waves`` is how many times the blocks fill the
+    card at :data:`SCAN_BLOCKS_PER_SM` a SM.  A smaller C cuts the depth
+    and adds warm-up bytes.  Only the C that give every SM a full block
+    compete (the smallest C when none does).  When the depth would not
+    drop below ``n``, one chunk with no warm-up runs the exact
+    recurrence."""
+    C = SCAN_TILE * np.arange(1, -(-n // SCAN_TILE) + 1, dtype=np.int64)
+    K = -(-n // C)
+    blocks = -(-rows * K // SCAN_CHUNKS_PER_BLOCK)
+    waves = -(-blocks // (sms * SCAN_BLOCKS_PER_SM))
+    per_sm = -(-blocks // sms)
+    depth_s = waves * (w0 + C) * STEP_NS * 1e-9
+    bytes_s = (per_sm * SCAN_CHUNKS_PER_BLOCK * 4.0 * (w0 + 2 * C)
+               / (HBM_BYTES_PER_S / sms))
+    t = np.maximum(depth_s, bytes_s)
+    full = rows * K >= sms * SCAN_CHUNKS_PER_BLOCK
+    C = int(C[np.argmin(np.where(full, t, np.inf))]) if full.any() \
+        else SCAN_TILE
+    if w0 + C >= n:
+        return 0, n, 1
+    return w0, C, -(-n // C)
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _win_views(vp: torch.Tensor, W: int, C: int, K: int, t0: int,
@@ -243,6 +303,20 @@ def env_scan_cuda(v2: torch.Tensor, W: int, C: int, K: int, attack: float,
 env_scan_cuda.launches = 0
 
 
+def env_step_cycles(steps: int, attack: float, release: float,
+                    device: torch.device) -> int:
+    """clock64 cycles that one warp of ``device`` takes for ``steps`` (a
+    multiple of 8) dependent steps of the recurrence on register values:
+    the latency of the chunked kernels' chain, tau, without their memory
+    traffic.  Synchronises."""
+    from . import _cuda
+
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.empty(32, dtype=torch.float32, device=device)
+    _cuda.launch("amw_env_step_clock", cycles, sink, steps, attack, release)
+    return int(cycles.item())
+
+
 def env_rows_cuda(v2: torch.Tensor, attack: float,
                   release: float) -> torch.Tensor:
     """Launch the one-sequence-per-row envelope kernel (replaces
@@ -274,9 +348,10 @@ def envelope_follower(v: torch.Tensor, attack_coef: float,
 
     The route is the JAX package's: short signals (:func:`short_route`) run
     the exact recurrence along each row (:func:`env_rows_cuda`), longer
-    ones the chunked recurrence (:func:`env_scan_cuda`, this module's
-    :func:`chunk_geometry`).  A CUDA tensor launches the kernel; a CPU
-    tensor takes its plain version (with fewer, longer chunks)."""
+    ones the chunked recurrence (:func:`env_scan_cuda` at
+    :func:`scan_geometry`'s chunks for the card's SM count).  A CUDA tensor
+    launches the kernel; a CPU tensor takes its plain version (at
+    :func:`chunk_geometry`'s fewer, longer chunks)."""
     n = v.shape[-1]
     if n == 0:
         return v
@@ -295,7 +370,8 @@ def envelope_follower(v: torch.Tensor, attack_coef: float,
         env = env_scan_plain(v2, *chunk_geometry(rows, n, w0,
                                                  _CPU_TARGET_SEQS), a, r)
     else:
-        env = env_scan_cuda(v2.contiguous(), *chunk_geometry(rows, n, w0),
+        env = env_scan_cuda(v2.contiguous(),
+                            *scan_geometry(rows, n, w0, sm_count(v2.device)),
                             a, r)
     return env.reshape(lead + (n,))
 

@@ -7,6 +7,12 @@ Phases, each printing JSON lines:
 1. device  — requires CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build   — compiles the CUDA kernels of ``amw_tpu_torch/csrc`` (nvcc,
              one process per source, all started together);
+   env_step — tau, one dependent step of the envelope recurrence: one
+             warp's clock64 cycles over 2^20 steps on register values
+             (``scan.env_step_cycles``) at the card's maximum SM clock
+             (``nvidia-smi``), beside the CUDA-event time of that launch;
+             the envelope kernels' latency bound is their serial depth
+             times tau;
 3. kernels — each of the thirteen kernels against its plain PyTorch
              version on the card at the shapes of the 180 s batch (16 rows
              of 7 938 000 samples; the staged FFT at nfft = 2^23, 8 packed
@@ -14,8 +20,10 @@ Phases, each printing JSON lines:
              row, kernel 12 at K = 4 on one mono row; the split stages:
              kernel 6, kernel 7 with a response, without one and on one
              unpacked row, kernel 10 at K = 2 and 4; the chunked envelope
-             with the transient designer's slow ballistics; the per-row
-             envelope at the 2 s clip's [16, 88 200]), with CUDA-event
+             with the transient designer's slow ballistics at the card
+             geometry (``scan.scan_geometry``, the main path's) and at
+             ``scan.chunk_geometry``'s, each checked, both timed; the
+             per-row envelope at the 2 s clip's [16, 88 200]), with CUDA-event
              times (median of 20; the envelope kernels' plain versions one
              run after a warm-up), the bound and a PyTorch library
              yardstick; the five B/C kernels (6-10) also their C pass
@@ -290,7 +298,37 @@ def check_deesser_kernels(x, args) -> tuple[float, float]:
     return box_err, env_err
 
 
-def phase_kernels(dev) -> dict:
+def phase_env_step(dev) -> float:
+    """tau in ns: one warp's clock64 cycles a dependent step of the
+    envelope recurrence on register values, at the maximum SM clock that
+    ``nvidia-smi`` reports (so ``steps * tau`` is a least time)."""
+    att, rel_c = scan.ar_coefs(SR, 0.005, 0.1)
+    steps = 1 << 20
+    scan.env_step_cycles(steps, att, rel_c, dev)  # warm-up
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    cycles = scan.env_step_cycles(steps, att, rel_c, dev)  # synchronises
+    b.record()
+    b.synchronize()
+    event_ms = a.elapsed_time(b)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.splitlines()[0]
+    max_mhz, sm_mhz = (float(f) for f in clocks.split(","))
+    check(cycles > 0 and max_mhz > 0, f"env_step: {cycles} cycles at "
+          f"{max_mhz} MHz")
+    tau_ns = cycles / steps / max_mhz * 1e3
+    emit({"phase": "env_step", "steps": steps, "cycles": cycles,
+          "cycles_per_step": cycles / steps, "clocks_max_sm_mhz": max_mhz,
+          "clocks_sm_mhz_after": sm_mhz, "tau_ns": tau_ns,
+          "event_ns_per_step": event_ms * 1e6 / steps,
+          "event_clock_mhz": cycles / (event_ms * 1e3)})
+    return tau_ns
+
+
+def phase_kernels(dev, tau_ns: float) -> dict:
     # matmuls/convolutions in full f32 (the plain versions, the yardsticks)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -332,7 +370,8 @@ def phase_kernels(dev) -> dict:
         lambda: scan.env_gain_cuda(*args),
         lambda: scan.env_gain_plain(*args), 2 * rows * n * 4 + rows * 4,
         rows * n * 12, None, plain_reps=1, W=W, C=C, K=K,
-        serial_steps=W + C, max_abs_err_5s=env_err_5s)
+        serial_steps=W + C, latency_bound_ms=(W + C) * tau_ns * 1e-6,
+        max_abs_err_5s=env_err_5s)
     del args
 
     out.update(fft_kernels(dev, g, rows, n))
@@ -482,7 +521,7 @@ def yardstick_order(nfft: int, dev) -> torch.Tensor:
     return torch.from_numpy(np.argsort(k2, axis=1)).to(dev)
 
 
-def phase_new_kernels(dev) -> dict:
+def phase_new_kernels(dev, tau_ns: float) -> dict:
     """The four kernels of the v2 job's path against their plain versions:
     kernel 8 (one response) on the 180 s batch's 8 packed rows and on one
     unpacked row at nfft = 2^23; kernel 12 over K = 4 bands of one mono
@@ -576,25 +615,41 @@ def phase_new_kernels(dev) -> dict:
          "no maps)", lambda: torch.fft.ifft(yc, dim=1)), K=K)
     del yc, Yr, Yi, xm, resps
 
-    # -- kernel 2': the chunked envelope, transient designer's slow follower
+    # -- kernel 2': the chunked envelope, transient designer's slow follower,
+    #    at the card geometry (the main path's) and at chunk_geometry's
     att, rel_c = scan.ar_coefs(SR, 0.005, 0.1)
     v = (0.3 * torch.randn(rows, n, generator=g)).abs().to(dev)
-    W, C, Kc = scan.chunk_geometry(rows, n, scan.warmup_len(att, rel_c))
-    a2 = (v, W, C, Kc, att, rel_c)
-    got = scan.env_scan_cuda(*a2)
-    want = scan.env_scan_plain(*a2)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(err <= ENV_ATOL, f"chunked envelope kernel err {err} > {ENV_ATOL}")
-    del got, want
+    w0 = scan.warmup_len(att, rel_c)
+    geoms = {"card": scan.scan_geometry(rows, n, w0, scan.sm_count(dev)),
+             "chunk": scan.chunk_geometry(rows, n, w0)}
+    errs = {}
+    for key, geom in geoms.items():
+        got = scan.env_scan_cuda(v, *geom, att, rel_c)
+        want = scan.env_scan_plain(v, *geom, att, rel_c)
+        torch.cuda.synchronize()
+        errs[key] = float((got - want).abs().max())
+        check(errs[key] <= ENV_ATOL, f"chunked envelope kernel err "
+              f"{errs[key]} > {ENV_ATOL} at (W, C, K) = {geom}")
+        del got, want
+    a2 = (v, *geoms["card"], att, rel_c)
+    a_chunk = (v, *geoms["chunk"], att, rel_c)
+    W, C, Kc = geoms["card"]
+    Wp, Cp, _ = geoms["chunk"]
     # per sample: compare, select, subtract, fused multiply-add
     out["env_scan"] = kernel_entry(
         "env_scan", "amw_tpu_torch/csrc/env_scan.cu",
-        "amw_tpu/ops/scan.py:375", [rows, n], err, None, ENV_ATOL,
-        lambda: scan.env_scan_cuda(*a2), lambda: scan.env_scan_plain(*a2),
-        2 * rows * n * 4, rows * n * 5, None, plain_reps=1, W=W, C=C, K=Kc,
-        serial_steps=W + C, ballistics_ms=[5.0, 100.0])
-    del v, a2
+        "amw_tpu/ops/scan.py:375", [rows, n], max(errs.values()), None,
+        ENV_ATOL, lambda: scan.env_scan_cuda(*a2),
+        lambda: scan.env_scan_plain(*a2), 2 * rows * n * 4, rows * n * 5,
+        None, plain_reps=1, W=W, C=C, K=Kc, serial_steps=W + C,
+        latency_bound_ms=(W + C) * tau_ns * 1e-6,
+        max_abs_err_card_geometry=errs["card"],
+        chunk_geometry=list(geoms["chunk"]),
+        ms_chunk_geometry=cuda_ms(lambda: scan.env_scan_cuda(*a_chunk)),
+        max_abs_err_chunk_geometry=errs["chunk"],
+        latency_bound_ms_chunk_geometry=(Wp + Cp) * tau_ns * 1e-6,
+        ballistics_ms=[5.0, 100.0])
+    del v, a2, a_chunk
 
     # -- kernel 3: one sequence per row at the 2 s clip's shape
     ns = int(SR * SHORT_CLIP_S)
@@ -611,7 +666,8 @@ def phase_new_kernels(dev) -> dict:
         lambda: scan.env_rows_cuda(v, att, rel_c),
         lambda: scan.env_rows_plain(v, att, rel_c),
         2 * rows * ns * 4, rows * ns * 5, None, plain_reps=1,
-        serial_steps=ns, ballistics_ms=[5.0, 100.0])
+        serial_steps=ns, latency_bound_ms=ns * tau_ns * 1e-6,
+        ballistics_ms=[5.0, 100.0])
     return out
 
 
@@ -1330,8 +1386,9 @@ def main() -> None:
     phase_device()
     dev = torch.device("cuda")
     phase_build()
-    kernels = phase_kernels(dev)
-    kernels.update(phase_new_kernels(dev))
+    tau_ns = phase_env_step(dev)
+    kernels = phase_kernels(dev, tau_ns)
+    kernels.update(phase_new_kernels(dev, tau_ns))
     kernels.update(phase_split_kernels(dev))
     phase_entry(dev)
 

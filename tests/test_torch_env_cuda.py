@@ -53,6 +53,57 @@ def test_env_scan_cuda_matches_plain(cuda_device, rows, n, ballistics):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,ballistics", [
+    (16, 300_000, (0.005, 0.1)),     # slow follower: warm-ups before 0
+    (3, 100_003, (0.0005, 0.005)),   # fast follower, a ragged last chunk
+])
+def test_env_scan_cuda_card_and_parent_geometry(cuda_device, rows, n,
+                                                ballistics):
+    """The staged kernel at the card geometry (``scan_geometry``, the SM
+    count of this card) and at ``chunk_geometry``'s: each equals its plain
+    version and the exact recurrence."""
+    att, rel = scan.ar_coefs(44100, *ballistics)
+    w0 = scan.warmup_len(att, rel)
+    v = _v(rows, n, 4).to(cuda_device)
+    exact = scan.env_rows_plain(v, att, rel)
+    card = scan.scan_geometry(rows, n, w0, scan.sm_count(cuda_device))
+    for W, C, K in (card, scan.chunk_geometry(rows, n, w0)):
+        assert K > 1
+        got = scan.env_scan_cuda(v, W, C, K, att, rel)
+        torch.cuda.synchronize()
+        want = scan.env_scan_plain(v, W, C, K, att, rel)
+        assert float((got - want).abs().max()) <= ENV_ATOL, (W, C, K)
+        assert float((got - exact).abs().max()) <= ENV_ATOL, (W, C, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,W,C", [
+    (1, 5_000, 333, 1_000),   # 5 chunks: rows that do not fill a block
+    (2, 3_000, 0, 512),       # no warm-up
+    (5, 7_001, 333, 384),     # 95 chunks: a last block of 31, W % 128 != 0
+    (2, 4_000, 1_000, 256),   # warm-ups reaching back before 0
+    (3, 700, 0, 700),         # one chunk a row, C not a multiple of 128
+])
+def test_env_scan_cuda_odd_geometries(cuda_device, rows, n, W, C):
+    att, rel = scan.ar_coefs(44100, 0.0005, 0.004)
+    K = -(-n // C)
+    v = _v(rows, n, 5).to(cuda_device)
+    got = scan.env_scan_cuda(v, W, C, K, att, rel)
+    torch.cuda.synchronize()
+    want = scan.env_scan_plain(v, W, C, K, att, rel)
+    assert float((got - want).abs().max()) <= ENV_ATOL
+
+
+@pytest.mark.cuda
+def test_env_step_cycles(cuda_device):
+    """The chain's clock: more steps take more cycles."""
+    att, rel = scan.ar_coefs(44100, 0.005, 0.1)
+    short = scan.env_step_cycles(1 << 12, att, rel, cuda_device)
+    long = scan.env_step_cycles(1 << 16, att, rel, cuda_device)
+    assert 0 < short < long
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,n", [(16, 88_200), (33, 5_000), (1, 129)])
 def test_env_rows_cuda_matches_plain(cuda_device, rows, n):
     att, rel = scan.ar_coefs(44100, 0.005, 0.1)

@@ -122,9 +122,9 @@ def test_env_gain_cuda_kernel_matches_plain(cuda_device):
 def test_envelope_follower_raises_on_cuda_tensors(monkeypatch):
     """No hidden fallback: a CUDA tensor goes to a kernel wrapper (the
     JAX package's route: one sequence per row for short signals, the
-    chunked kernel over the port's own geometry otherwise), never to the
-    plain loop.  (A stand-in tensor and recording wrappers: the check needs
-    no GPU.)"""
+    chunked kernel at the port's card geometry otherwise), never to the
+    plain loop.  (A stand-in tensor, recording wrappers and an H100's SM
+    count: the check needs no GPU.)"""
     calls = []
 
     class _CudaTensor:
@@ -148,6 +148,7 @@ def test_envelope_follower_raises_on_cuda_tensors(monkeypatch):
 
     monkeypatch.setattr(tscan, "env_rows_cuda", record("rows"))
     monkeypatch.setattr(tscan, "env_scan_cuda", record("scan"))
+    monkeypatch.setattr(tscan, "sm_count", lambda device: 132)
     for name in ("env_rows_plain", "env_scan_plain", "_env_chunks"):
         monkeypatch.setattr(tscan, name, None)
     att, rel = tscan.ar_coefs(44100, 0.005, 0.1)
@@ -157,4 +158,5 @@ def test_envelope_follower_raises_on_cuda_tensors(monkeypatch):
     n = 2 * w0 + 1
     tscan.envelope_follower(_CudaTensor(n), att, rel)
     assert calls == [("rows", (att, rel)),
-                     ("scan", (*tscan.chunk_geometry(2, n, w0), att, rel))]
+                     ("scan", (*tscan.scan_geometry(2, n, w0, 132), att,
+                               rel))]
