@@ -1,7 +1,6 @@
 // The attack/release envelope recurrence, shared by the envelope kernels
-// (env_gain.cu: the de-esser's envelope -> gain; env_scan.cu: the chunked
-// envelope and the one-sequence-per-row envelope; the Python side is
-// amw_tpu_torch/ops/scan.py):
+// (env_staged.cuh, the staged walk of env_scan.cu and env_gain.cu; the
+// Python side is amw_tpu_torch/ops/scan.py):
 //
 //   env = c * env + (1 - c) * v = v + c * (env - v),
 //   c   = attack if v > env else release,
@@ -25,27 +24,6 @@ __device__ __forceinline__ float env_step(float e, float v, float attack,
                                           float release) {
   const float c = v > e ? attack : release;
   return fmaf(c, e - v, v);
-}
-
-template <bool kAbs>
-__device__ __forceinline__ float env_input(const float* p) {
-  const float v = __ldg(p);
-  return kAbs ? fabsf(v) : v;
-}
-
-// The state after the W warm-up steps of the chunk whose first kept
-// position is `off` in row `xr` (positions below 0 read xr[0]); the state
-// starts at the first warm-up value.  kAbs: the input is |xr|.
-template <bool kAbs>
-__device__ __forceinline__ float env_warmup(const float* xr, int off, int W,
-                                            float attack, float release) {
-  const int start = off - W;
-  float e = env_input<kAbs>(xr + max(start, 0));
-#pragma unroll 4
-  for (int g = start; g < off; ++g) {
-    e = env_step(e, env_input<kAbs>(xr + max(g, 0)), attack, release);
-  }
-  return e;
 }
 
 }  // namespace amw_env

@@ -1,76 +1,59 @@
 // De-esser envelope -> gain over chunked windows of x [rows, n].
 //
 // Replaces the Pallas TPU kernel amw_tpu/ops/scan.py `_win_scan_pallas` in
-// gain mode (take_abs, aux).  Row `row` of x is cut into K chunks of C
-// samples; thread m = row * K + kk runs the attack/release recurrence of
-// env_core.cuh over v = |x| at global positions kk*C - W .. kk*C + C - 1:
-// W warm-up steps (positions below 0 read x[0], the recurrence's fixed
-// point, which reproduces env[0] = |x[0]| for chunk 0) then C body steps.
-// W is chosen so that the warm-up forgets the start state to 1e-8, so every
-// chunk equals the exact recurrence.  Each body step writes
+// gain mode (take_abs, aux).  The staged walk of env_staged.cuh over
+// v = |x| (the scanning lane takes |x| as it unpacks a batch, off the
+// dependent chain; positions below 0 read x[row, 0], whose |.| is the
+// recurrence's fixed point, from n on 0), with the gain map as its
+// epilogue, run by the loader threads as they store a tile's body:
 //
 //   out[row, g] = clip(red(env) / env, floor, 1)   for 0 <= g < n_valid[row]
 //               = 0                                 otherwise,
 //   red(env)    = thresh + (env - thresh) / ratio if env > thresh else env,
 //
-// (gain 1 where env <= 1e-10, as in the JAX kernel).  The TPU kernel reads
+// (gain 1 where env <= 1e-10, as in the JAX kernel; the same operations in
+// the same order as scan._gain_map, IEEE division).  The TPU kernel reads
 // materialised warm-up/body views [M, W] and [M, C]; this one reads both
 // in place from x by index.
 //
-// Bound on an H100: each thread runs W + C dependent steps, and the whole
-// call takes at least that depth times one step's latency (W is about
-// 69000 for the de-esser's 85 ms release at 44.1 kHz).  The bytes the
-// function must move, x once and the gain once (2 * 16 * 220500 * 4 =
-// 28.2 MB at the de-esser's [16, 220500], 8.4 us at 3.35 TB/s), matter far
-// less.  One thread walks one row here, so loads are not coalesced (each
-// thread streams its own cache lines through L1); staging tiles through
-// shared memory is later work.
-#include "env_core.cuh"
+// Bound on an H100: the serial depth W + C (W = 69050 for the de-esser's
+// 4 ms / 85 ms at 44.1 kHz) times one step's latency, against the bytes
+// of x once, the overlapping warm-up windows and the gain once; the host
+// takes `scan.scan_geometry`'s chunks, one block of full chunks on every
+// SM where it can (at the 180 s batch's [16, 7938000]: C 30080, K 264,
+// exactly 132 blocks).
+#include "env_staged.cuh"
 
 using namespace amw_env;
 
 namespace {
 
-constexpr int kThreads = 128;
+struct DeesserGain {
+  const int* n_valid;
+  float thresh, ratio, floor_;
 
-__global__ void env_gain_kernel(const float* __restrict__ x,
-                                const int* __restrict__ n_valid,
-                                float* __restrict__ out, int rows, int n,
-                                int W, int C, int K, float attack,
-                                float release, float thresh, float ratio,
-                                float floor_) {
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  if (m >= rows * K) return;
-  const int row = m / K;
-  const int kk = m - row * K;
-  const float* xr = x + static_cast<long long>(row) * n;
-  float* yr = out + static_cast<long long>(row) * n;
-  const int off = kk * C;
-  const int nv = n_valid[row];
+  static constexpr bool kAbs = true;
 
-  float e = env_warmup<true>(xr, off, W, attack, release);
-  const int end = min(off + C, n);
-#pragma unroll 4
-  for (int g = off; g < end; ++g) {
-    e = env_step(e, env_input<true>(xr + g), attack, release);
+  __device__ __forceinline__ int limit(int row, int) const {
+    return n_valid[row];
+  }
+
+  __device__ __forceinline__ float store(float e, int pos, int nv) const {
     const float red = e > thresh ? thresh + (e - thresh) / ratio : e;
     float gain = e > 1e-10f ? red / (e + 1e-12f) : 1.0f;
     gain = fminf(fmaxf(gain, floor_), 1.0f);
-    yr[g] = g < nv ? gain : 0.0f;
+    return pos < nv ? gain : 0.0f;
   }
-}
+};
 
 }  // namespace
 
+// x, out: [rows, n]; n_valid: [rows]; chunk geometry W, C, K
+// (K * C >= n > (K - 1) * C).
 extern "C" int amw_env_gain(const float* x, const int* n_valid, float* out,
                             int rows, int n, int W, int C, int K,
                             float attack, float release, float thresh,
                             float ratio, float floor_, void* stream) {
-  const int m = rows * K;
-  if (m <= 0 || n <= 0) return 0;
-  env_gain_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      x, n_valid, out, rows, n, W, C, K, attack, release, thresh, ratio,
-      floor_);
-  return static_cast<int>(cudaGetLastError());
+  return launch_staged(x, out, rows, n, W, C, K, attack, release,
+                       DeesserGain{n_valid, thresh, ratio, floor_}, stream);
 }

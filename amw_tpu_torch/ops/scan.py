@@ -19,13 +19,15 @@ for a tensor on the CPU:
   / :func:`env_gain_plain` (replaces ``_win_scan_pallas`` in gain mode);
 - :func:`envelope_follower`, the route the JAX package takes for long
   signals: the chunked envelope ``csrc/env_scan.cu`` ``amw_env_scan`` /
-  :func:`env_scan_plain` (replaces ``_win_scan_pallas`` in envelope mode),
-  on the card at :func:`scan_geometry`'s chunks;
+  :func:`env_scan_plain` (replaces ``_win_scan_pallas`` in envelope mode);
 - its route for short signals (``n <= max(2·W, 2·min_chunk)``, the JAX
   package's ``_env_blocks``): the exact recurrence along each row,
   ``amw_env_rows`` / :func:`env_rows_plain` (replaces ``_env_pallas``).
 
-All three share one recurrence core (``csrc/env_core.cuh``).
+All three are one staged walk (``csrc/env_staged.cuh``, a template over
+what the walk reads and stores) over one recurrence core
+(``csrc/env_core.cuh``), on the card at :func:`scan_geometry`'s chunks;
+the per-row route is that walk at ``(W, C, K) = (0, n, 1)``.
 """
 
 from __future__ import annotations
@@ -53,8 +55,10 @@ def warmup_len(attack_coef: float, release_coef: float,
     return max(1, int(math.ceil(math.log(eps) / math.log(rho))))
 
 
-# Chunk geometry of the GPU kernels: about this many independent chunk
-# sequences (one thread each) per call, chunk lengths in multiples of 256.
+# chunk_geometry's default: about this many independent chunk sequences
+# per call, chunk lengths in multiples of 256 (the geometry of the envelope
+# kernels' first design, one thread a chunk; the card now takes
+# scan_geometry's).
 _TARGET_SEQS = 4096
 _CHUNK_ALIGN = 256
 # The plain loop on the CPU pays per step and per sequence: fewer, longer
@@ -70,7 +74,7 @@ def chunk_geometry(rows: int, n: int, w0: int,
     """``(W, C, K)``: warm-up length, chunk length and chunk count for
     ``rows`` sequences of ``n`` samples with warm-up ``w0``.
 
-    A thread's serial depth is ``W + C``; W is fixed by the ballistics, so
+    A chunk's serial depth is ``W + C``; W is fixed by the ballistics, so
     chunks are cut short enough to give ~``target`` sequences.  When the
     depth would not drop below ``n``, one chunk with no warm-up runs the
     exact recurrence."""
@@ -81,8 +85,8 @@ def chunk_geometry(rows: int, n: int, w0: int,
     return w0, C, -(-n // C)
 
 
-# The chunked envelope kernel (csrc/env_scan.cu ``amw_env_scan``): chunks a
-# block (its scanning warp), steps a staged tile (:func:`scan_geometry` cuts
+# The envelope kernels' staged walk (csrc/env_staged.cuh): chunks a block
+# (its scanning warp), steps a staged tile (:func:`scan_geometry` cuts
 # chunks in multiples of it) and blocks resident on one SM (its 51 KB of
 # shared memory against an H100 SM's 227 KB).
 SCAN_CHUNKS_PER_BLOCK = 32
@@ -381,7 +385,8 @@ def deesser_gain_combine(y3: torch.Tensor, sc: torch.Tensor, attack: float,
                          *, floor: float = 0.35, nv=None,
                          eps: float = 1e-8) -> torch.Tensor:
     """``y3 - sc + sc * gain`` with the de-esser's smoothed gain curve:
-    envelope → gain (:func:`env_gain`), then the k-wide box
+    envelope → gain (:func:`env_gain`: on the card at :func:`scan_geometry`'s
+    chunks, on the CPU at :func:`chunk_geometry`'s), then the k-wide box
     (:func:`~amw_tpu_torch.ops.fdfilter.box_smooth_same`) and a clip.
 
     ``y3``, ``sc``: [B, ..., N]; ``nv``: [B] valid lengths (None = whole
@@ -397,8 +402,9 @@ def deesser_gain_combine(y3: torch.Tensor, sc: torch.Tensor, attack: float,
         nv_lead = nv.to(torch.int32).reshape(
             nv.shape + (1,) * (len(lead) - nv.ndim)).expand(lead)
         nv_rows = nv_lead.reshape(rows).contiguous()
-    W, C, K = chunk_geometry(rows, n, warmup_len(attack, release, eps),
-                             _TARGET_SEQS if sc.is_cuda else _CPU_TARGET_SEQS)
+    w0 = warmup_len(attack, release, eps)
+    W, C, K = (scan_geometry(rows, n, w0, sm_count(sc.device)) if sc.is_cuda
+               else chunk_geometry(rows, n, w0, _CPU_TARGET_SEQS))
     gain = env_gain(sc.reshape(rows, n).contiguous(), nv_rows, W, C, K,
                     attack, release, thresh, ratio, floor)
     gain = box_smooth_same(gain, k).clamp(floor, 1.0)

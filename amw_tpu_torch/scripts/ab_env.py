@@ -1,15 +1,19 @@
 """Time the envelope kernels of the ``amw_tpu_torch`` package found in the
-current directory, at the 180 s batch's shapes (16 rows of 7 938 000
-samples), on one GPU:
+current directory on one GPU:
 
-- kernel 2′ ``env_scan_cuda`` (the chunked envelope) with the transient
-  designer's slow (5 ms / 100 ms) and fast (0.5 ms / 5 ms) followers, each
-  at ``chunk_geometry``'s chunks and at the card geometry of the
+- kernel 2 ``env_gain_cuda`` (the de-esser's 4 ms / 85 ms envelope →
+  gain) at the 180 s batch's [16, 7 938 000], two tracks padded (150 s,
+  97.5 s), at ``chunk_geometry``'s chunks and at the card geometry of the
   ``scan_geometry`` beside this script (read from this file's package, so
-  a parent checkout without it is timed at the same chunks);
-- the controls, kernel 2 ``env_gain_cuda`` (the de-esser's 4 ms / 85 ms
-  envelope → gain, ``chunk_geometry``) and kernel 3 ``env_rows_cuda`` (one
-  sequence a row at the 2 s clip's [16, 88 200]).
+  a parent checkout is timed at the same chunks); the same two geometries
+  at the other shapes the v1 and v2 runs give it: the 5 s batch's
+  [16, 220 500], the 2 s clip's [2, 88 200], one 180 s mono track's
+  [1, 7 938 000] and one stereo track's [2, 7 938 000];
+- kernel 3 ``env_rows_cuda`` (one sequence a row) at the 2 s clip's own
+  [2, 88 200] and at [16, 88 200];
+- the control, kernel 2′ ``env_scan_cuda`` (the chunked envelope) with the
+  transient designer's slow (5 ms / 100 ms) follower at that card
+  geometry.
 
     cd <checkout> && python <this file>
 
@@ -65,30 +69,38 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card_geometry = _card_geometry()
     g = torch.Generator(device="cpu").manual_seed(0)
-    v = (0.3 * torch.randn(ROWS, N, generator=g)).abs().to(dev)
     out = {"checkout": os.getcwd(), "nvidia_smi": smi, "sms": sms}
-    for follower, ballistics in (("slow", (0.005, 0.1)),
-                                 ("fast", (0.0005, 0.005))):
-        att, rel = scan.ar_coefs(SR, *ballistics)
-        w0 = scan.warmup_len(att, rel)
-        for geo, (W, C, K) in (
-                ("chunk", scan.chunk_geometry(ROWS, N, w0)),
-                ("card", card_geometry(ROWS, N, w0, sms))):
-            key = f"env_scan_{follower}_{geo}"
-            out[f"{key}_WCK"] = [W, C, K]
-            out[f"{key}_ms"] = median_ms(
-                lambda: scan.env_scan_cuda(v, W, C, K, att, rel))
     att, rel = scan.ar_coefs(SR, 0.004, 0.085)
+    w0 = scan.warmup_len(att, rel)
     sc = (0.3 * torch.randn(ROWS, N, generator=g)).to(dev)
     nv = torch.tensor([N] * (ROWS - 4) + [int(150 * SR)] * 2
                       + [int(97.5 * SR)] * 2, dtype=torch.int32, device=dev)
-    W, C, K = scan.chunk_geometry(ROWS, N, scan.warmup_len(att, rel))
-    out["env_gain_WCK"] = [W, C, K]
-    out["env_gain_ms"] = median_ms(lambda: scan.env_gain_cuda(
-        sc, nv, W, C, K, att, rel, 10 ** (-6.0 / 20), 3.0, 0.35))
+    for geo, (W, C, K) in (("chunk", scan.chunk_geometry(ROWS, N, w0)),
+                           ("card", card_geometry(ROWS, N, w0, sms))):
+        out[f"env_gain_{geo}_WCK"] = [W, C, K]
+        out[f"env_gain_{geo}_ms"] = median_ms(lambda: scan.env_gain_cuda(
+            sc, nv, W, C, K, att, rel, 10 ** (-6.0 / 20), 3.0, 0.35))
+    for rows, n in ((16, 220_500), (2, CLIP_N), (1, N), (2, N)):
+        x = sc[:rows, :n].contiguous()
+        nvr = torch.full((rows,), n, dtype=torch.int32, device=dev)
+        for geo, (W, C, K) in (("chunk", scan.chunk_geometry(rows, n, w0)),
+                               ("card", card_geometry(rows, n, w0, sms))):
+            key = f"env_gain_{rows}x{n}_{geo}"
+            out[f"{key}_WCK"] = [W, C, K]
+            out[f"{key}_ms"] = median_ms(lambda: scan.env_gain_cuda(
+                x, nvr, W, C, K, att, rel, 10 ** (-6.0 / 20), 3.0, 0.35))
+    del sc, x
     att, rel = scan.ar_coefs(SR, 0.005, 0.1)
     vc = (0.3 * torch.randn(ROWS, CLIP_N, generator=g)).abs().to(dev)
-    out["env_rows_ms"] = median_ms(lambda: scan.env_rows_cuda(vc, att, rel))
+    for rows in (2, ROWS):
+        vr = vc[:rows].contiguous()
+        out[f"env_rows_{rows}_ms"] = median_ms(
+            lambda: scan.env_rows_cuda(vr, att, rel))
+    v = (0.3 * torch.randn(ROWS, N, generator=g)).abs().to(dev)
+    W, C, K = card_geometry(ROWS, N, scan.warmup_len(att, rel), sms)
+    out["env_scan_slow_card_WCK"] = [W, C, K]
+    out["env_scan_slow_card_ms"] = median_ms(
+        lambda: scan.env_scan_cuda(v, W, C, K, att, rel))
     print(json.dumps(out), flush=True)
 
 

@@ -1,10 +1,10 @@
-// Design variants of the chunked envelope kernel (csrc/env_scan.cu
-// env_scan_kernel), for amw_tpu_torch/scripts/tune_env_scan.py: the same
+// Design variants of the envelope kernels' staged walk
+// (csrc/env_staged.cuh env_staged_kernel), for amw_tpu_torch/scripts/tune_env_scan.py: the same
 // walk with the tile's steps T, the ring's slots S, the scanning lane's
 // register batch B (1: a scalar loop over shared memory; else float4
 // batches, the next read before the current runs), the row padding P
 // (float4 batches need 4), SPLIT loader threads a step column and the
-// loads and stores on or off (MOVE).  Variant 4 is csrc/env_scan.cu's.
+// loads and stores on or off (MOVE).  Variant 4 is csrc/env_staged.cuh's.
 // Built by the script with nvcc into amw_tpu_torch/_build/; not part of
 // the package.
 #include "../csrc/env_core.cuh"
@@ -183,7 +183,7 @@ extern "C" int var_scan(int variant, const float* v, float* out, int rows,
       return launch<128, 3, 32, 4, 1>(v, out, rows, n, W, C, K, a, r);
     case 3:
       return launch<128, 4, 16, 4, 1>(v, out, rows, n, W, C, K, a, r);
-    case 4:  // csrc/env_scan.cu's
+    case 4:  // csrc/env_staged.cuh's
       return launch<128, 3, 16, 4, 2>(v, out, rows, n, W, C, K, a, r);
     case 5:  // 4's scan alone: no loads, no stores
       return launch<128, 3, 16, 4, 2, false>(v, out, rows, n, W, C, K, a, r);

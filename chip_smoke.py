@@ -23,15 +23,19 @@ Phases, each printing JSON lines:
              with the transient designer's slow ballistics at the card
              geometry (``scan.scan_geometry``, the main path's) and at
              ``scan.chunk_geometry``'s, each checked, both timed; the
-             per-row envelope at the 2 s clip's [16, 88 200]), with CUDA-event
+             per-row envelope at the 2 s clip's own [2, 88 200] and at
+             [16, 88 200], each checked and timed), with CUDA-event
              times (median of 20; the envelope kernels' plain versions one
              run after a warm-up), the bound and a PyTorch library
              yardstick; the five B/C kernels (6-10) also their C pass
              alone (``cstage_multi_kernel``, ``cstage_fwd_kernel``,
              ``cstage_inv_kernel``: torch.profiler over 10 launches)
              beside its bound; the box and env-gain kernels also at the 5 s
-             batch's shapes (16 rows of 220 500 samples and that length's
-             chunk geometry);
+             batch's shapes (16 rows of 220 500 samples); the env-gain
+             kernel at both batches' card geometry (the main path's) and
+             ``chunk_geometry``'s, each checked, timed at both at 180 s
+             and at the card geometry at 5 s, each with its W, C, K and
+             latency bound;
 4. entry   — ``fft_staged.roundtrip_multi`` (K = 2) and
              ``roundtrip_multi_reduce`` (K = 4, the band maps) at [16, 2^23]
              against ``torch.fft`` (rfft → × K → irfft), and a sweep of
@@ -266,7 +270,9 @@ BOX_K = 67  # the de-esser's box width at 44.1 kHz
 def deesser_kernel_inputs(dev, g, dur: float, valid) -> tuple:
     """The de-esser kernels' inputs at one batch's shapes: the box
     smoother's gain rows and the env-gain arguments (sidechain rows, two
-    tracks shorter, the chunk geometry of that length)."""
+    tracks shorter) at the card geometry of that length (the main path's:
+    ``scan.scan_geometry`` for this card's SMs) and at
+    ``scan.chunk_geometry``'s."""
     rows, n = BATCH * 2, int(SR * dur)
     x = torch.rand(rows, n, generator=g).to(dev)
     att, rel = scan.ar_coefs(SR, 0.004, 0.085)
@@ -275,13 +281,17 @@ def deesser_kernel_inputs(dev, g, dur: float, valid) -> tuple:
     nv = torch.tensor([n] * (rows - 4) + [int(valid[0] * SR)] * 2
                       + [int(valid[1] * SR)] * 2, dtype=torch.int32,
                       device=dev)
-    W, C, K = scan.chunk_geometry(rows, n, scan.warmup_len(att, rel))
-    return x, (sc, nv, W, C, K, att, rel, thresh, ratio, floor)
+    w0 = scan.warmup_len(att, rel)
+    tail = (att, rel, thresh, ratio, floor)
+    return x, {"card": (sc, nv, *scan.scan_geometry(rows, n, w0,
+                                                   scan.sm_count(dev)), *tail),
+               "chunk": (sc, nv, *scan.chunk_geometry(rows, n, w0), *tail)}
 
 
-def check_deesser_kernels(x, args) -> tuple[float, float]:
-    """Box and env-gain kernels against their plain versions; returns the
-    two max abs errors."""
+def check_deesser_kernels(x, geoms) -> tuple[float, dict]:
+    """Box and env-gain kernels against their plain versions, the latter
+    at each geometry; returns the box's max abs error and the env-gain's
+    by geometry."""
     got = fdfilter.box_smooth_cuda(x, BOX_K)
     want = fdfilter.box_smooth_plain(x, BOX_K)
     torch.cuda.synchronize()
@@ -289,13 +299,17 @@ def check_deesser_kernels(x, args) -> tuple[float, float]:
     check(box_err <= BOX_ATOL, f"box kernel err {box_err} > {BOX_ATOL} at "
           f"{list(x.shape)}")
     del got, want
-    got = scan.env_gain_cuda(*args)
-    want = scan.env_gain_plain(*args)
-    torch.cuda.synchronize()
-    env_err = float((got - want).abs().max())
-    check(env_err <= ENV_ATOL, f"env-gain kernel err {env_err} > {ENV_ATOL} "
-          f"at {list(x.shape)}, (W, C, K) = {args[2:5]}")
-    return box_err, env_err
+    env_errs = {}
+    for key, args in geoms.items():
+        got = scan.env_gain_cuda(*args)
+        want = scan.env_gain_plain(*args)
+        torch.cuda.synchronize()
+        env_errs[key] = float((got - want).abs().max())
+        check(env_errs[key] <= ENV_ATOL, f"env-gain kernel err "
+              f"{env_errs[key]} > {ENV_ATOL} at {list(x.shape)}, "
+              f"(W, C, K) = {args[2:5]}")
+        del got, want
+    return box_err, env_errs
 
 
 def phase_env_step(dev) -> float:
@@ -336,17 +350,20 @@ def phase_kernels(dev, tau_ns: float) -> dict:
     out = {}
 
     # -- the de-esser's two kernels at both batches' shapes (at 5 s most
-    #    chunks' warm-up reaches back before sample 0); timed at 180 s
-    errs = {}
+    #    chunks' warm-up reaches back before sample 0); timed at 180 s, the
+    #    env-gain kernel also at 5 s
+    errs, gains = {}, {}
     for dur, valid in (SHORT, LONG):
-        x, args = deesser_kernel_inputs(dev, g, dur, valid)
-        errs[dur] = check_deesser_kernels(x, args)
+        x, gains[dur] = deesser_kernel_inputs(dev, g, dur, valid)
+        errs[dur] = check_deesser_kernels(x, gains[dur])
         emit({"phase": "kernel_check", "track_s": dur, "shape": list(x.shape),
               "box_max_abs_err": errs[dur][0],
-              "env_max_abs_err": errs[dur][1], "env_W_C_K": args[2:5]})
+              "env_max_abs_err": errs[dur][1],
+              "env_W_C_K": {key: args[2:5]
+                            for key, args in gains[dur].items()}})
     rows, n = x.shape
-    box_err, env_err = errs[LONG[0]]
-    box_err_5s, env_err_5s = errs[SHORT[0]]
+    box_err, env_errs = errs[LONG[0]]
+    box_err_5s, env_errs_5s = errs[SHORT[0]]
 
     k = BOX_K
     w = torch.full((1, 1, k), 1.0 / k, device=dev)
@@ -361,18 +378,33 @@ def phase_kernels(dev, tau_ns: float) -> dict:
         k=k, max_abs_err_5s=box_err_5s)
     del x
 
+    args, a_chunk = gains[LONG[0]]["card"], gains[LONG[0]]["chunk"]
+    a_5s = gains[SHORT[0]]["card"]
     W, C, K = args[2:5]
+    Wp, Cp, Kp = a_chunk[2:5]
+    W5, C5, K5 = a_5s[2:5]
     # the function's own work: each sample through the recurrence (compare,
     # select, 2 mul, 1 sub, 1 add) and the gain map (~6), once
     out["env_gain"] = kernel_entry(
         "env_gain", "amw_tpu_torch/csrc/env_gain.cu",
-        "amw_tpu/ops/scan.py:375", [rows, n], env_err, None, ENV_ATOL,
+        "amw_tpu/ops/scan.py:375", [rows, n],
+        max(*env_errs.values(), *env_errs_5s.values()), None, ENV_ATOL,
         lambda: scan.env_gain_cuda(*args),
         lambda: scan.env_gain_plain(*args), 2 * rows * n * 4 + rows * 4,
         rows * n * 12, None, plain_reps=1, W=W, C=C, K=K,
         serial_steps=W + C, latency_bound_ms=(W + C) * tau_ns * 1e-6,
-        max_abs_err_5s=env_err_5s)
-    del args
+        max_abs_err_card_geometry=env_errs["card"],
+        chunk_geometry=[Wp, Cp, Kp],
+        ms_chunk_geometry=cuda_ms(lambda: scan.env_gain_cuda(*a_chunk)),
+        max_abs_err_chunk_geometry=env_errs["chunk"],
+        latency_bound_ms_chunk_geometry=(Wp + Cp) * tau_ns * 1e-6,
+        shape_5s=list(a_5s[0].shape), geometry_5s=[W5, C5, K5],
+        ms_5s=cuda_ms(lambda: scan.env_gain_cuda(*a_5s)),
+        latency_bound_ms_5s=(W5 + C5) * tau_ns * 1e-6,
+        max_abs_err_5s=env_errs_5s["card"],
+        max_abs_err_5s_chunk_geometry=env_errs_5s["chunk"],
+        ballistics_ms=[4.0, 85.0])
+    del args, a_chunk, a_5s, gains
 
     out.update(fft_kernels(dev, g, rows, n))
     return out
@@ -527,7 +559,7 @@ def phase_new_kernels(dev, tau_ns: float) -> dict:
     unpacked row at nfft = 2^23; kernel 12 over K = 4 bands of one mono
     180 s row; the chunked envelope at [16, 7 938 000] with the transient
     designer's slow ballistics (5 ms / 100 ms); the per-row envelope at the
-    2 s clip's [16, 88 200]."""
+    2 s clip's own [2, 88 200] and at [16, 88 200]."""
     g = torch.Generator(device="cpu").manual_seed(2)
     nfft = LONG_NFFT
     n = int(SR * LONG[0])
@@ -651,22 +683,31 @@ def phase_new_kernels(dev, tau_ns: float) -> dict:
         ballistics_ms=[5.0, 100.0])
     del v, a2, a_chunk
 
-    # -- kernel 3: one sequence per row at the 2 s clip's shape
+    # -- kernel 3: one sequence per row at the 2 s clip's own [2, 88 200]
+    #    (the main path's) and at [16, 88 200]
     ns = int(SR * SHORT_CLIP_S)
-    v = (0.3 * torch.randn(rows, ns, generator=g)).abs().to(dev)
-    got = scan.env_rows_cuda(v, att, rel_c)
-    want = scan.env_rows_plain(v, att, rel_c)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(err <= ENV_ATOL, f"per-row envelope kernel err {err} > {ENV_ATOL}")
-    del got, want
+    v16 = (0.3 * torch.randn(rows, ns, generator=g)).abs().to(dev)
+    v = v16[:2].contiguous()
+    errs = {}
+    for vv in (v, v16):
+        got = scan.env_rows_cuda(vv, att, rel_c)
+        want = scan.env_rows_plain(vv, att, rel_c)
+        torch.cuda.synchronize()
+        errs[vv.shape[0]] = float((got - want).abs().max())
+        check(errs[vv.shape[0]] <= ENV_ATOL, f"per-row envelope kernel err "
+              f"{errs[vv.shape[0]]} > {ENV_ATOL} at {list(vv.shape)}")
+        del got, want
     out["env_rows"] = kernel_entry(
         "env_rows", "amw_tpu_torch/csrc/env_scan.cu",
-        "amw_tpu/ops/scan.py:122", [rows, ns], err, None, ENV_ATOL,
-        lambda: scan.env_rows_cuda(v, att, rel_c),
+        "amw_tpu/ops/scan.py:122", list(v.shape), max(errs.values()), None,
+        ENV_ATOL, lambda: scan.env_rows_cuda(v, att, rel_c),
         lambda: scan.env_rows_plain(v, att, rel_c),
-        2 * rows * ns * 4, rows * ns * 5, None, plain_reps=1,
+        2 * v.numel() * 4, v.numel() * 5, None, plain_reps=1,
         serial_steps=ns, latency_bound_ms=ns * tau_ns * 1e-6,
+        max_abs_err_2_rows=errs[2], shape_16_rows=[rows, ns],
+        ms_16_rows=cuda_ms(lambda: scan.env_rows_cuda(v16, att, rel_c)),
+        max_abs_err_16_rows=errs[rows],
+        latency_bound_ms_16_rows=ns * tau_ns * 1e-6,
         ballistics_ms=[5.0, 100.0])
     return out
 

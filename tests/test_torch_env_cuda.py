@@ -1,4 +1,6 @@
-"""The envelope kernels against their plain PyTorch versions on the card.
+"""The envelope kernels (2, the de-esser's envelope → gain; 2′, the chunked
+envelope; 3, the per-row envelope) against their plain PyTorch versions on
+the card.
 
 GPU only (``cuda`` marker; every test skips without a card).  The file
 imports no JAX, so it runs on a machine with the card and no JAX package:
@@ -29,6 +31,12 @@ def _v(rows, n, seed):
     g = np.random.default_rng(seed)
     env = 0.5 + 0.5 * np.abs(np.sin(np.arange(n) / 3000.0))
     return torch.from_numpy(np.abs(g.standard_normal((rows, n)) * env)
+                            .astype(np.float32))
+
+
+def _sidechain(rows, n, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy((0.3 * g.standard_normal((rows, n)))
                             .astype(np.float32))
 
 
@@ -104,8 +112,15 @@ def test_env_step_cycles(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", [(16, 88_200), (33, 5_000), (1, 129)])
+@pytest.mark.parametrize("rows,n", [
+    (16, 88_200),  # the kernels phase's [16, 88 200]: one block
+    (2, 88_200),   # the 2 s clip's own two rows
+    (33, 5_000),   # two blocks, the second of one row
+    (1, 129),      # n not a multiple of the 128-step tile
+    (3, 1_000),
+])
 def test_env_rows_cuda_matches_plain(cuda_device, rows, n):
+    """Kernel 3, the staged walk at (W, C, K) = (0, n, 1)."""
     att, rel = scan.ar_coefs(44100, 0.005, 0.1)
     v = _v(rows, n, 2).to(cuda_device)
     before = scan.env_rows_cuda.launches
@@ -132,3 +147,32 @@ def test_envelope_follower_routes_on_cuda(cuda_device):
         assert counter.launches == before + 1
         want = scan.envelope_follower(v, att, rel)
         assert float((got.cpu() - want).abs().max()) <= ENV_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,nv_short", [
+    (16, 220_500, (185_220, 158_760)),  # the v1 5 s batch, two padded tracks
+    (2, 88_200, (60_000,)),             # the 2 s clip, one row padded
+    (1, 300_000, (250_000,)),           # one padded row
+])
+def test_env_gain_cuda_card_and_chunk_geometry(cuda_device, rows, n,
+                                               nv_short):
+    """Kernel 2 at the card geometry (``scan_geometry`` for this card's
+    SMs, the main path's) and at ``chunk_geometry``'s: each equals its
+    plain version (expected: exactly) and is 0 past each row's end."""
+    att, rel = scan.ar_coefs(44100, 0.004, 0.085)
+    thresh = 10 ** (-6.0 / 20)
+    w0 = scan.warmup_len(att, rel)
+    x = _sidechain(rows, n, 6).to(cuda_device)
+    nvs = [n] * (rows - len(nv_short)) + list(nv_short)
+    nv = torch.tensor(nvs, dtype=torch.int32, device=cuda_device)
+    card = scan.scan_geometry(rows, n, w0, scan.sm_count(cuda_device))
+    for W, C, K in (card, scan.chunk_geometry(rows, n, w0)):
+        got = scan.env_gain_cuda(x, nv, W, C, K, att, rel, thresh, 3.0,
+                                 0.35)
+        torch.cuda.synchronize()
+        want = scan.env_gain_plain(x, nv, W, C, K, att, rel, thresh, 3.0,
+                                   0.35)
+        assert float((got - want).abs().max()) <= 1e-5, (W, C, K)
+        for r, v in enumerate(nvs):
+            assert int(torch.count_nonzero(got[r, v:])) == 0

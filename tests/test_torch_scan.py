@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from amw_tpu.ops import scan as jscan
+from amw_tpu_torch.ops import fdfilter
 from amw_tpu_torch.ops import scan as tscan
 
 
@@ -92,6 +93,29 @@ def test_chunked_gain_equals_single_chunk(rows, n):
     assert float(got[:, n - 123:].abs().max()) == 0.0
 
 
+def test_gain_tail_at_card_geometry_matches_pallas_interpret():
+    """The gain at the chunks the card takes (``scan_geometry`` for an
+    H100's 132 SMs: many short chunks whose warm-ups reach back before 0),
+    through the box and the combine, against the JAX package's gain-mode
+    kernel."""
+    sr = 44100
+    att, rel = jscan.ar_coefs(sr, 0.004, 0.0085)
+    thresh, ratio, floor = 10 ** (-6.0 / 20), 3.0, 0.35
+    k, n, nv = 67, 40000, 31000
+    y3, sc = _pair((2, n), 5)
+    want = np.asarray(jscan.deesser_gain_combine(
+        jnp.asarray(y3), jnp.asarray(sc), att, rel, thresh, ratio, k,
+        nv=nv, force_pallas=True, interpret=True))
+    W, C, K = tscan.scan_geometry(2, n, tscan.warmup_len(att, rel), 132)
+    assert K > 1 and C < W, "the test must exercise the card's chunks"
+    sct = torch.from_numpy(sc)
+    gain = tscan.env_gain(sct, torch.full((2,), nv, dtype=torch.int32), W, C,
+                          K, att, rel, thresh, ratio, floor)
+    gain = fdfilter.box_smooth_same(gain, k).clamp(floor, 1.0)
+    got = (torch.from_numpy(y3) - sct + sct * gain).numpy()
+    np.testing.assert_allclose(got[..., :nv], want[..., :nv], atol=1e-5)
+
+
 def test_envelope_follower_matches_jax():
     rng = np.random.default_rng(4)
     v = np.abs(0.3 * rng.standard_normal((2, 30000))).astype(np.float32)
@@ -117,6 +141,52 @@ def test_env_gain_cuda_kernel_matches_plain(cuda_device):
     assert tscan.env_gain_cuda.launches == before + 1
     want = tscan.env_gain_plain(x, nv, W, C, K, att, rel, thresh, 3.0, 0.35)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_deesser_gain_combine_launches_the_kernel_on_cuda(monkeypatch):
+    """No hidden fallback: on a CUDA tensor the de-esser's gain goes to
+    the kernel's wrapper at the card geometry (``scan_geometry`` for the
+    card's SMs), never to its plain version.  (A stand-in tensor, a
+    recording wrapper and an H100's SM count: the check needs no GPU.)"""
+    calls = []
+
+    class _CudaTensor:
+        is_cuda = True
+        device = torch.device("cuda")
+
+        def __init__(self, shape):
+            self.shape = shape
+
+        def reshape(self, *shape):
+            return self
+
+        def contiguous(self):
+            return self
+
+        def clamp(self, *args):
+            return self
+
+        __add__ = __sub__ = __mul__ = __rmul__ = lambda self, other: self
+
+    def record(x2, nv_rows, *args):
+        calls.append((nv_rows.tolist(), args))
+        return x2
+
+    monkeypatch.setattr(tscan, "env_gain_cuda", record)
+    monkeypatch.setattr(tscan, "sm_count", lambda device: 132)
+    monkeypatch.setattr(fdfilter, "box_smooth_same", lambda g, k: g)
+    for name in ("env_gain_plain", "_env_chunks", "chunk_geometry"):
+        monkeypatch.setattr(tscan, name, None)
+    att, rel = tscan.ar_coefs(44100, 0.004, 0.085)
+    thresh = 10 ** (-6.0 / 20)
+    n = 7_938_000
+    sc = _CudaTensor((8, 2, n))
+    tscan.deesser_gain_combine(_CudaTensor((8, 2, n)), sc, att, rel, thresh,
+                               3.0, 67, nv=torch.tensor([n] * 7 + [n // 2]))
+    W, C, K = tscan.scan_geometry(16, n, tscan.warmup_len(att, rel), 132)
+    assert (W, C, K) == (69_050, 30_080, 264)  # one block on every SM
+    assert calls == [([n] * 14 + [n // 2] * 2,
+                      (W, C, K, att, rel, thresh, 3.0, 0.35))]
 
 
 def test_envelope_follower_raises_on_cuda_tensors(monkeypatch):
