@@ -1,6 +1,7 @@
 // 128-point DFTs along the columns of a [128, 32] tile in shared memory,
 // shared by the staged-FFT kernels (fft_stage_a.cu, fft_bccb.cu,
-// fft_reduce.cu; the Python side is amw_tpu_torch/ops/fft_staged.py).
+// fft_split.cu; the Python side is amw_tpu_torch/ops/fft_staged.py; the
+// reduce kernels of fft_reduce.cu run fft_areg.cuh's transform instead).
 //
 // The JAX package contracts its A and B axes with a 128 x 128 DFT matrix on
 // the TPU's matrix unit (amw_tpu/ops/fft_pallas.py `_dot_l`).  On an H100 a

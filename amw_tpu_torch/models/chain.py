@@ -11,8 +11,8 @@ Failure semantics are the JAX package's with one exception.  A builder that
 raises at build time is bypassed and recorded in ``bypassed`` (the
 reference bypasses a module that fails), and a fusion that fails to build
 falls back to the separate modules.  A ``NotImplementedError``, however, is
-what the port raises for a module whose op is not ported yet (it names its
-ROADMAP item); it propagates, so that a chain never quietly skips a module
+what the port raises for a module whose op is not ported yet (it names the
+``amw_tpu`` module to port); it propagates, so that a chain never quietly skips a module
 the JAX package runs.
 """
 
@@ -104,13 +104,13 @@ def _b_imager(spec, cfg, device):
 def _b_reverb(spec, cfg, device):
     raise NotImplementedError(
         "the reverb module is not ported to amw_tpu_torch yet (ROADMAP.md, "
-        "'Modules to port', item 7)")
+        "'Modules to port': amw_tpu/ops/reverb.py)")
 
 
 def _b_true_peak(spec, cfg, device):
     raise NotImplementedError(
         "the true-peak limiter module is not ported to amw_tpu_torch yet "
-        "(ROADMAP.md, 'Modules to port', item 7)")
+        "(ROADMAP.md, 'Modules to port': amw_tpu/ops/tplimit.py)")
 
 
 MODULE_BUILDERS: dict[str, Callable] = {

@@ -28,12 +28,9 @@ from ..ops.stereo import build_stereo_imager
 from ..spec import GraphSpec
 from .chain import as_batch
 
-_TODO = "ROADMAP.md, 'Modules to port', item 7 (the rest of the op set)"
-
-
-def _not_ported(what: str):
+def _not_ported(what: str, module: str):
     raise NotImplementedError(f"{what} is not ported to amw_tpu_torch yet "
-                              f"({_TODO})")
+                              f"(ROADMAP.md, 'Modules to port': {module})")
 
 
 def build_v1_pipeline(
@@ -56,9 +53,11 @@ def build_v1_pipeline(
     dev = resolve_device(device)
     cfg = STYLE_CONFIGS.get(style, STYLE_CONFIGS["standard"])
     if denoise_strength > 0.01:
-        _not_ported("the spectral denoiser (denoise_strength > 0)")
+        _not_ported("the spectral denoiser (denoise_strength > 0)",
+                    "amw_tpu/ops/spectral.py")
     if reference_env is not None:
-        _not_ported("reference matching (reference_env)")
+        _not_ported("reference matching (reference_env)",
+                    "amw_tpu/ops/spectral.py")
     exciter_db = cfg.get("exciter_db", 0.0)
     imager_width = cfg.get("imager_width", 1.0)
     parallel_mix = cfg.get("parallel_mix", 0.0)

@@ -6,10 +6,10 @@ Mirrors ``_run_mastering_job_v2`` (routers/mastering.py:443-637): PRE =
 [rumble_filter] [spectral_denoise] [de-esser]; POST = [transient_designer]
 [parallel_compression] [dynamic_eq]; then the 6 ms output fade-in.  The
 spectral denoiser, the true-peak limiter and vocal isolation are not
-ported: asking for them raises ``NotImplementedError`` naming their
-ROADMAP items.  The JAX graph's progress token (host callbacks per stage)
-has no counterpart here (ROADMAP.md, 'Modules to port', item 8: the
-runtime).
+ported: asking for them raises ``NotImplementedError`` naming the
+``amw_tpu`` module to port.  The JAX graph's progress token (host
+callbacks per stage) has no counterpart here (ROADMAP.md, 'Modules to
+port': amw_tpu/runtime/progress.py).
 """
 
 from __future__ import annotations
@@ -39,10 +39,10 @@ def resolve_denoise(pro: dict) -> tuple[float, float]:
     return 0.0, 15.0
 
 
-def _not_ported(what: str, item: int, name: str):
+def _not_ported(what: str, module: str):
     raise NotImplementedError(
         f"{what} is not ported to amw_tpu_torch yet (ROADMAP.md, 'Modules "
-        f"to port', item {item}: {name})")
+        f"to port': {module})")
 
 
 def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
@@ -59,14 +59,14 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
     dev = resolve_device(device)
     pro = pro or {}
     if pro.get("apply_vocal_isolation"):
-        _not_ported("vocal isolation (apply_vocal_isolation)", 11,
-                    "models/htdemucs_jax.py and models/vocal.py")
+        _not_ported("vocal isolation (apply_vocal_isolation)",
+                    "amw_tpu/models/vocal.py, amw_tpu/models/htdemucs_jax.py")
     if resolve_denoise(pro)[0] > 0.01:
         _not_ported("the spectral denoiser (denoise_preset / "
-                    "denoise_strength)", 7, "spectral.py")
+                    "denoise_strength)", "amw_tpu/ops/spectral.py")
     if pro.get("true_peak_enabled"):
-        _not_ported("the true-peak limiter (true_peak_enabled)", 7,
-                    "tplimit.py")
+        _not_ported("the true-peak limiter (true_peak_enabled)",
+                    "amw_tpu/ops/tplimit.py")
     stages = []
 
     def add(name, built):

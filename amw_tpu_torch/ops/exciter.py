@@ -6,7 +6,8 @@ is a zero-phase 6 kHz high pass (``zphase.make_zp``: the staged FFT's
 ``apply_response`` at its plans on a GPU), a waveshaper and a mix.  The
 oversampled variant needs the JAX package's FFT resampler
 (``fdfilter.resample_fft``), which is not ported: it raises
-``NotImplementedError`` (ROADMAP.md, 'Modules to port', item 7).
+``NotImplementedError`` (ROADMAP.md, 'Modules to port':
+amw_tpu/ops/fdfilter.py).
 
 Reference: backend/app/pipeline.py:1267-1326 (``apply_harmonic_exciter``)
 and :1179-1197 (waveshaper curves).
@@ -30,7 +31,7 @@ def build_harmonic_exciter(spec: GraphSpec, exciter_db: float = 0.0,
         raise NotImplementedError(
             f"the harmonic exciter at oversample={os_f} needs "
             "fdfilter.resample_fft, which is not ported to amw_tpu_torch yet "
-            "(ROADMAP.md, 'Modules to port', item 7)")
+            "(ROADMAP.md, 'Modules to port': amw_tpu/ops/fdfilter.py)")
     ba = design.butter_ba_norm(2, min(6000.0 / (spec.sr / 2.0), 0.97), "high")
     zp = make_zp(GraphSpec(sr=spec.sr, n=spec.n, channels=spec.channels,
                            exact=spec.exact), [ba], device=device)

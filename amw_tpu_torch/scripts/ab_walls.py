@@ -1,13 +1,14 @@
 """Time the end-to-end runs of ``chip_smoke.py`` with the ``amw_tpu_torch``
 package found in the current directory, on one GPU: the v1 ``standard``
-chain on 8 stereo tracks of 5 s and of 180 s, and the v2 job on 8 stereo
+chain on 8 stereo tracks of 5 s and of 180 s (the latter also on the split
+route, ``AMW_FFT_FUSED_RT=0``), and the v2 job on 8 stereo
 tracks of 180 s, one mono 180 s track, one 2 s stereo clip and one stereo
 180 s track with the chain-config options (the inputs, configs and pro set
 of ``chip_smoke.py`` beside this script).
 
     cd <checkout> && python <this file> [run ...]
 
-(the runs named, by default all six).
+(the runs named, by default all seven).
 
 It compares two checkouts on one card: run it in the parent's and the
 change's checkout in turns (parent, change, change, parent) within one
@@ -16,9 +17,10 @@ name and power limit (``nvidia-smi``), and for each run the steady-state
 wall per batch (host clock over ``reps`` batches after 2 warm-up batches,
 synchronised), the device time per batch (torch.profiler over 2 batches:
 the sum of the device events), the device's idle share of the wall, and
-the de-esser env-gain kernel's device time (kernel 2) and the envelope
-followers' (kernels 2′ and 3 together: one template instance in the
-change), and the host's ten costliest operations (self CPU ms per batch,
+the de-esser env-gain kernel's device time (kernel 2), the envelope
+followers' (kernels 2′ and 3 together: one template instance) and the
+reduce kernels' (11 and 12, ``reduce_kernel<true/false>``), and the
+host's ten costliest operations (self CPU ms per batch,
 calls per batch).  No output is checked here: ``chip_smoke.py`` does.
 """
 
@@ -45,6 +47,8 @@ from amw_tpu_torch.ops import _cuda  # noqa: E402
 # names of the kernels before the staged walk and of its instances
 KERNEL_2 = ("env_gain_kernel", "DeesserGain>")
 FOLLOWERS = ("env_scan_kernel", "env_rows_kernel", "Envelope>")
+# kernels 11 and 12 (PyTorch's own reductions are reduce_kernel<512, ...>)
+REDUCE = ("reduce_kernel<true>", "reduce_kernel<false>")
 
 
 def _smoke():
@@ -65,7 +69,7 @@ def _device_ms(step, reps: int = 2) -> dict:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    out = {"busy": 0.0, "kernel_2": 0.0, "followers": 0.0}
+    out = {"busy": 0.0, "kernel_2": 0.0, "followers": 0.0, "reduce": 0.0}
     host = []
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
@@ -81,6 +85,8 @@ def _device_ms(step, reps: int = 2) -> dict:
             out["kernel_2"] += ms
         if any(k in evt.key for k in FOLLOWERS):
             out["followers"] += ms
+        if any(k in evt.key for k in REDUCE):
+            out["reduce"] += ms
     out["host_top"] = sorted(host, key=lambda h: -h[1])[:10]
     return out
 
@@ -100,6 +106,8 @@ def main() -> None:
         ("v1_5s", "v1", cs.SHORT[0], cs.SHORT[1], cs.BATCH, 2, "standard",
          False, 20),
         ("v1_180s", "v1", long_s, long_valid, cs.BATCH, 2, "standard",
+         False, 5),
+        ("v1_180s_split", "v1", long_s, long_valid, cs.BATCH, 2, "standard",
          False, 5),
         ("v2_180s", "v2", long_s, long_valid, cs.BATCH, 2, "standard",
          False, 3),
@@ -127,7 +135,7 @@ def main() -> None:
         def step():
             return fn(x_d, params, nv_d)
 
-        with torch.no_grad():
+        with torch.no_grad(), cs.fft_route(label.endswith("_split")):
             for _ in range(2):
                 step()
             torch.cuda.synchronize()
@@ -142,6 +150,7 @@ def main() -> None:
                       "idle_share": 1.0 - dev_ms["busy"] / wall_ms,
                       "kernel_2_ms": dev_ms["kernel_2"],
                       "followers_ms": dev_ms["followers"],
+                      "reduce_ms": dev_ms["reduce"],
                       "host_top": dev_ms["host_top"]}
         del params, fn, x_d, nv_d
         torch.cuda.empty_cache()

@@ -183,7 +183,38 @@ def test_apply_response_cuda_matches_torch_fft(cuda_device, nfft, rows):
 
 
 @pytest.mark.cuda
-def test_unpacked_reduce_raises_on_cuda(cuda_device):
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("nfft", [1 << 20, 1 << 23])
+def test_reduce_kernels_cuda_match_plain(cuda_device, nfft, rows, K):
+    """Kernels 11 (packed, R2 = rows) and 12 (unpacked, R = rows) at K
+    bands whose maps cycle through every mode (bypass, soft knee, upward
+    boost, hard knee), on spectra scaled so that each plane's inverse is
+    ~0.2 RMS (mastering levels), so every branch of every map runs.  One
+    launch of each wrapper per call."""
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    maps = [BandMap(*BANDS[k % len(BANDS)]) for k in range(K)]
+    yr, yi = (p.to(dev) for p in _planes((K * rows, nfft), 40 + K + rows,
+                                         0.3 * (nfft / 2) ** 0.5))
+    before = tfs.reduce_packed_cuda.launches
+    got = tfs._reduce_stage_a_packed(yr, yi, K, rows, nfft, maps, tabs)
+    torch.cuda.synchronize()
+    assert tfs.reduce_packed_cuda.launches == before + 1
+    assert got.shape == (2 * rows, nfft)
+    want = tfs.reduce_packed_plain(yr, yi, K, rows, nfft, maps, tabs)
+    assert _rel(got, want) < REL_REDUCE
+    before = tfs.reduce_cuda.launches
+    got = tfs._reduce_stage_a(yr, yi, K, rows, nfft, maps, tabs)
+    torch.cuda.synchronize()
+    assert tfs.reduce_cuda.launches == before + 1
+    assert got.shape == (rows, nfft)
+    want = tfs.reduce_plain(yr, yi, K, rows, nfft, maps, tabs)
+    assert _rel(got, want) < REL_REDUCE
+
+
+@pytest.mark.cuda
+def test_unpacked_reduce_cuda_matches_plain_and_torch_fft(cuda_device):
     """Odd row counts take the unpacked reduce (kernel 12): it matches its
     plain version, and ``roundtrip_multi_reduce`` over 3 rows matches
     ``torch.fft`` with the maps applied per band.  The reference bands are
