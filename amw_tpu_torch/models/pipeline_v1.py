@@ -2,11 +2,10 @@
 ``amw_tpu/models/pipeline_v1.py``).
 
 Mirrors ``run_mastering_pipeline`` (backend/app/pipeline.py:1800-1909):
-dc → peak guard → target curve → de-esser → dynamics (4-band + maximizer
-+ brickwall) → [parallel compression] → normalize LUFS → final spectral
-balance → style EQ → [transient designer] → [exciter] → [imager] → peak
-guard → fade-in → clip/scrub.  The optional stages whose ops are not
-ported yet (denoise, reference match) raise ``NotImplementedError``.
+dc → peak guard → [denoise] → target curve → de-esser → dynamics (4-band
++ maximizer + brickwall) → [parallel compression] → normalize LUFS →
+final spectral balance → [reference match] → style EQ → [transient
+designer] → [exciter] → [imager] → peak guard → fade-in → clip/scrub.
 """
 
 from __future__ import annotations
@@ -24,13 +23,10 @@ from ..ops.eq import (build_final_spectral_balance, build_style_eq,
                       build_target_curve)
 from ..ops.exciter import build_harmonic_exciter
 from ..ops.fused import build_normalize_then_final, build_target_then_deesser
+from ..ops.spectral import build_reference_match, build_spectral_denoise
 from ..ops.stereo import build_stereo_imager
 from ..spec import GraphSpec
 from .chain import as_batch
-
-def _not_ported(what: str, module: str):
-    raise NotImplementedError(f"{what} is not ported to amw_tpu_torch yet "
-                              f"(ROADMAP.md, 'Modules to port': {module})")
 
 
 def build_v1_pipeline(
@@ -52,12 +48,6 @@ def build_v1_pipeline(
     [B, C, N] (``n_valid``: [B] valid lengths of bucket-padded tracks)."""
     dev = resolve_device(device)
     cfg = STYLE_CONFIGS.get(style, STYLE_CONFIGS["standard"])
-    if denoise_strength > 0.01:
-        _not_ported("the spectral denoiser (denoise_strength > 0)",
-                    "amw_tpu/ops/spectral.py")
-    if reference_env is not None:
-        _not_ported("reference matching (reference_env)",
-                    "amw_tpu/ops/spectral.py")
     exciter_db = cfg.get("exciter_db", 0.0)
     imager_width = cfg.get("imager_width", 1.0)
     parallel_mix = cfg.get("parallel_mix", 0.0)
@@ -69,6 +59,9 @@ def build_v1_pipeline(
 
     add("dc_offset+peak_guard_in",
         ([], lambda x, p: basic.remove_dc_then_peak_guard(x, 0.5)))
+    if denoise_strength > 0.01:
+        add("spectral_denoise",
+            build_spectral_denoise(spec, denoise_strength, device=dev))
     fused_td = build_target_then_deesser(spec, device=dev)
     if fused_td is not None:
         add("target_eq+deesser", fused_td)
@@ -79,17 +72,24 @@ def build_v1_pipeline(
     if parallel_mix > 0.01:
         add("parallel_compress",
             ([], lambda x, p: basic.parallel_compression(x, mix=parallel_mix)))
-    fused_nf = build_normalize_then_final(spec, target_lufs, style, device=dev)
+    # normalize → final balance (→ style EQ) share one forward FFT; with a
+    # reference match between them and the style EQ, only the first two
+    fused_nf = build_normalize_then_final(
+        spec, target_lufs, style if reference_env is None else None,
+        device=dev)
     if fused_nf is not None:
         p_nf, f_nf, nf_id = fused_nf
         add(nf_id, (p_nf, f_nf))
-        if "style_eq" not in nf_id:
-            add("style_eq", build_style_eq(spec, style, device=dev))
     else:
         add("normalize_lufs",
             meters.build_normalize_lufs(spec, target_lufs, device=dev))
         add("final_spectral_balance",
             build_final_spectral_balance(spec, device=dev))
+    if reference_env is not None:
+        add("reference_match",
+            build_reference_match(spec, reference_env,
+                                  strength=reference_strength, device=dev))
+    if fused_nf is None or "style_eq" not in fused_nf[2]:
         add("style_eq", build_style_eq(spec, style, device=dev))
     if (abs(transient_attack - 1.0) > 0.02
             or abs(transient_sustain - 1.0) > 0.02):

@@ -5,9 +5,8 @@ before/after loudness and the validation stats of every track.
 Mirrors ``_run_mastering_job_v2`` (routers/mastering.py:443-637): PRE =
 [rumble_filter] [spectral_denoise] [de-esser]; POST = [transient_designer]
 [parallel_compression] [dynamic_eq]; then the 6 ms output fade-in.  The
-spectral denoiser, the true-peak limiter and vocal isolation are not
-ported: asking for them raises ``NotImplementedError`` naming the
-``amw_tpu`` module to port.  The JAX graph's progress token (host
+true-peak limiter and vocal isolation are not ported: asking for them
+raises ``NotImplementedError`` naming the ``amw_tpu`` module to port.  The JAX graph's progress token (host
 callbacks per stage) has no counterpart here (ROADMAP.md, 'Modules to
 port': amw_tpu/runtime/progress.py).
 """
@@ -23,6 +22,7 @@ from ..ops import basic, fft_staged, meters, validctx
 from ..ops.dynamics import (build_deesser, build_dynamic_eq,
                             build_transient_designer)
 from ..ops.eq import build_rumble_filter
+from ..ops.spectral import build_spectral_denoise
 from ..spec import GraphSpec
 from .chain import as_batch, build_chain_ops, default_chain_config
 
@@ -61,9 +61,6 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
     if pro.get("apply_vocal_isolation"):
         _not_ported("vocal isolation (apply_vocal_isolation)",
                     "amw_tpu/models/vocal.py, amw_tpu/models/htdemucs_jax.py")
-    if resolve_denoise(pro)[0] > 0.01:
-        _not_ported("the spectral denoiser (denoise_preset / "
-                    "denoise_strength)", "amw_tpu/ops/spectral.py")
     if pro.get("true_peak_enabled"):
         _not_ported("the true-peak limiter (true_peak_enabled)",
                     "amw_tpu/ops/tplimit.py")
@@ -75,6 +72,10 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
     if pro.get("rumble_enabled"):
         add("rumble_filter", build_rumble_filter(
             spec, float(pro.get("rumble_cutoff", 80.0)), device=dev))
+    strength, noise_pct = resolve_denoise(pro)
+    if strength > 0.01:
+        add("spectral_denoise", build_spectral_denoise(
+            spec, strength, noise_pct, device=dev))
     if pro.get("deesser_enabled"):
         add("deesser", build_deesser(
             spec, threshold_db=float(pro.get("deesser_threshold", -6.0)),

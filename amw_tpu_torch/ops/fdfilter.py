@@ -10,8 +10,8 @@ rFFT → complex multiply → irFFT (``torch.fft``, cuFFT on the GPU):
                          (``exact=True``), or one fused ``|H|²`` pass.
 - :func:`fftconvolve_same_fd` — FIR convolution with 'same' cropping.
 
-:func:`box_smooth_same` (the de-esser's gain smoother) runs the CUDA halo
-box kernel ``csrc/box_smooth.cu`` on a GPU tensor and its plain PyTorch
+:func:`box_smooth_same` (the de-esser's gain smoother) runs the CUDA box
+kernel ``csrc/box_smooth.cu`` on a GPU tensor and its plain PyTorch
 version (:func:`box_smooth_plain`) on a CPU tensor.
 
 All functions work on the trailing axis and broadcast over leading axes;
@@ -134,7 +134,8 @@ def fftconvolve_same_fd(x: torch.Tensor, h: torch.Tensor, nfft: int):
     return y[..., start:start + n]
 
 
-# Widest box the CUDA kernel stages in shared memory (csrc/box_smooth.cu).
+# Widest box the CUDA kernel takes (csrc/box_smooth.cu: the generic path
+# stages the tile, its halo and its s8 sums, ~98 KB of shared memory).
 BOX_MAX_K = 8193
 
 
@@ -164,8 +165,9 @@ def box_smooth_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def box_smooth_cuda(x2: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch the halo box kernel on ``x2`` f32 [R, n] (CUDA, contiguous).
-    Replaces ``amw_tpu/ops/fdfilter.py`` ``_box_pallas``."""
+    """Launch the box kernel on ``x2`` f32 [R, n] (CUDA, contiguous): the
+    plain version's sums in its order, so exactly its result.  Replaces
+    ``amw_tpu/ops/fdfilter.py`` ``_box_pallas``."""
     from . import _cuda
 
     if not x2.is_cuda or x2.dtype != torch.float32 or x2.ndim != 2:
@@ -173,7 +175,7 @@ def box_smooth_cuda(x2: torch.Tensor, k: int) -> torch.Tensor:
     if not x2.is_contiguous():
         raise ValueError("box_smooth_cuda: input must be contiguous")
     R, n = x2.shape
-    if not (1 <= k <= BOX_MAX_K) or R > 65535 or n >= 2 ** 31:
+    if not (1 <= k <= BOX_MAX_K) or R > 65535 or n > 2 ** 31 - 2 ** 15:
         raise ValueError(f"box_smooth_cuda: unsupported k={k} / shape "
                          f"{tuple(x2.shape)}")
     y = torch.empty_like(x2)
@@ -188,7 +190,7 @@ box_smooth_cuda.launches = 0
 def box_smooth_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """Centered moving average of odd width ``k`` with zero-padded edges
     (``fftconvolve_same_fd(x, ones(k)/k, nfft)`` up to f32 summation
-    order).  On a CUDA tensor: the box kernel, for every row count; on a
+    order; the kernel and the plain version sum in one order).  On a CUDA tensor: the box kernel, for every row count; on a
     CPU tensor: :func:`box_smooth_plain`."""
     if k <= 1:
         return x

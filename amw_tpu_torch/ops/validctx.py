@@ -126,3 +126,28 @@ def splice(fast: torch.Tensor, yl: torch.Tensor, yr: torch.Tensor, n: int,
 def gather_last(x: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
     """``x[b, ..., nv[b]-1:nv[b]]`` for every track (keepdims)."""
     return take(x, (nv - 1).clamp(min=0), 1)
+
+
+def masked_quantile_last(a: torch.Tensor, q: float,
+                         count: torch.Tensor) -> torch.Tensor:
+    """Linear-interpolated ``q``-th percentile over the last axis when only
+    the first ``count[b]`` slots of track ``b`` are real (invalid entries
+    pushed to +inf, so they sort last); keeps the last axis (size 1).
+    ``count``: [B], aligned with ``a``'s leading axis."""
+    return quantile_last_sorted(torch.sort(a, dim=-1).values, q, count)
+
+
+def quantile_last_sorted(s: torch.Tensor, q: float,
+                         count: torch.Tensor) -> torch.Tensor:
+    """:func:`masked_quantile_last` of ``s``, sorted along its last axis
+    already (one sort serves several percentiles): ``jnp.percentile``'s
+    float32 interpolation at ``q / 100 * (count - 1)``."""
+    m = (count - 1).clamp(min=0).to(torch.float32)
+    pos = per_track(torch.tensor(q, dtype=torch.float32) / 100.0 * m, s)
+    lo = pos.floor()
+    hi = pos.ceil()
+    frac = pos - lo
+    shape = s.shape[:-1] + (1,)
+    v_lo = torch.gather(s, -1, lo.long().expand(shape))
+    v_hi = torch.gather(s, -1, hi.long().expand(shape))
+    return v_lo * (1.0 - frac) + v_hi * frac

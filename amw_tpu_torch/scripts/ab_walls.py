@@ -4,7 +4,7 @@ chain on 8 stereo tracks of 5 s and of 180 s (the latter also on the split
 route, ``AMW_FFT_FUSED_RT=0``), and the v2 job on 8 stereo
 tracks of 180 s, one mono 180 s track, one 2 s stereo clip and one stereo
 180 s track with the chain-config options (the inputs, configs and pro set
-of ``chip_smoke.py`` beside this script).
+of the current directory's ``chip_smoke.py``).
 
     cd <checkout> && python <this file> [run ...]
 
@@ -17,9 +17,10 @@ name and power limit (``nvidia-smi``), and for each run the steady-state
 wall per batch (host clock over ``reps`` batches after 2 warm-up batches,
 synchronised), the device time per batch (torch.profiler over 2 batches:
 the sum of the device events), the device's idle share of the wall, and
-the de-esser env-gain kernel's device time (kernel 2), the envelope
-followers' (kernels 2′ and 3 together: one template instance) and the
-reduce kernels' (11 and 12, ``reduce_kernel<true/false>``), and the
+the de-esser's box smoother's device time (kernel 1) and its env-gain
+kernel's (kernel 2), the envelope followers' (kernels 2′ and 3 together:
+one template instance) and the reduce kernels' (11 and 12,
+``reduce_kernel<true/false>``), and the
 host's ten costliest operations (self CPU ms per batch,
 calls per batch).  No output is checked here: ``chip_smoke.py`` does.
 """
@@ -43,6 +44,9 @@ from amw_tpu_torch.models import (build_v1_pipeline,  # noqa: E402
                                   build_v2_job_graph)
 from amw_tpu_torch.ops import _cuda  # noqa: E402
 
+# kernel 1's device events (the kernel before the register walk, the walk's
+# instances, the generic path)
+KERNEL_1 = ("box_smooth_kernel", "box_walk_kernel", "box_generic_kernel")
 # kernel 2's and the envelope followers' (2′, 3) device events, by the
 # names of the kernels before the staged walk and of its instances
 KERNEL_2 = ("env_gain_kernel", "DeesserGain>")
@@ -52,9 +56,9 @@ REDUCE = ("reduce_kernel<true>", "reduce_kernel<false>")
 
 
 def _smoke():
-    """``chip_smoke.py`` beside this script's package, importing the
-    package of the current directory."""
-    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    """The current directory's ``chip_smoke.py`` (the checkout timed),
+    importing the package of the current directory."""
+    path = Path(os.getcwd()) / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("_ab_walls_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -69,7 +73,8 @@ def _device_ms(step, reps: int = 2) -> dict:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    out = {"busy": 0.0, "kernel_2": 0.0, "followers": 0.0, "reduce": 0.0}
+    out = {"busy": 0.0, "kernel_1": 0.0, "kernel_2": 0.0, "followers": 0.0,
+           "reduce": 0.0}
     host = []
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
@@ -81,6 +86,8 @@ def _device_ms(step, reps: int = 2) -> dict:
             dev_us = evt.self_cuda_time_total
         ms = dev_us / 1e3 / reps
         out["busy"] += ms
+        if any(k in evt.key for k in KERNEL_1):
+            out["kernel_1"] += ms
         if any(k in evt.key for k in KERNEL_2):
             out["kernel_2"] += ms
         if any(k in evt.key for k in FOLLOWERS):
@@ -148,6 +155,7 @@ def main() -> None:
         out[label] = {"wall_ms": wall_ms, "reps": reps,
                       "device_ms": dev_ms["busy"],
                       "idle_share": 1.0 - dev_ms["busy"] / wall_ms,
+                      "kernel_1_ms": dev_ms["kernel_1"],
                       "kernel_2_ms": dev_ms["kernel_2"],
                       "followers_ms": dev_ms["followers"],
                       "reduce_ms": dev_ms["reduce"],

@@ -3,7 +3,8 @@
 ``amw_tpu_torch.ops.fdfilter.box_smooth_same`` runs the CUDA kernel on a
 GPU tensor and its plain PyTorch version on a CPU tensor; both are held
 against ``amw_tpu.ops.fdfilter._box_pallas`` (interpret mode) and the JAX
-shift-add.  atol 3e-5: the three sum the k taps in different orders.
+shift-add at atol 3e-5 (XLA may fuse the shifted adds in another order);
+on the card the kernel equals the plain version exactly.
 """
 
 import functools
@@ -67,6 +68,7 @@ def test_box_batched_leading_axes():
 
 @pytest.mark.cuda
 def test_box_cuda_kernel_matches_plain(cuda_device):
+    """The kernel adds in the plain version's order: exactly equal."""
     for R, n, k in ((16, 220500, 67), (1, 5000, 3), (2, 40, 145)):
         x = torch.from_numpy(_rows((R, n))).to(cuda_device)
         before = tfd.box_smooth_cuda.launches
@@ -74,4 +76,4 @@ def test_box_cuda_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         assert tfd.box_smooth_cuda.launches == before + 1
         want = tfd.box_smooth_plain(x, k)
-        assert float((got - want).abs().max()) <= 3e-5
+        assert torch.equal(got, want)

@@ -10,11 +10,10 @@ names must exist.
 import re
 from pathlib import Path
 
-import numpy as np
 import pytest
 
 from amw_tpu_torch import GraphSpec
-from amw_tpu_torch.models import build_v1_pipeline, build_v2_job_graph
+from amw_tpu_torch.models import build_v2_job_graph
 from amw_tpu_torch.models.chain import build_chain_ops
 from amw_tpu_torch.ops.exciter import build_harmonic_exciter
 
@@ -32,15 +31,7 @@ def _chain(module_id):
                                    device="cpu")
 
 
-def _v1(**kw):
-    return lambda: build_v1_pipeline(SPEC, device="cpu", **kw)
-
-
 CASES = {
-    "v2_denoise_preset": (_v2({"denoise_preset": "vocal"}),
-                          ["amw_tpu/ops/spectral.py"]),
-    "v2_denoise_strength": (_v2({"denoise_strength": 0.5}),
-                            ["amw_tpu/ops/spectral.py"]),
     "v2_true_peak": (_v2({"true_peak_enabled": True}),
                      ["amw_tpu/ops/tplimit.py"]),
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
@@ -53,9 +44,6 @@ CASES = {
         lambda: build_harmonic_exciter(SPEC, 0.6, oversample=2,
                                        device="cpu"),
         ["amw_tpu/ops/fdfilter.py"]),
-    "v1_denoise": (_v1(denoise_strength=0.5), ["amw_tpu/ops/spectral.py"]),
-    "v1_reference_match": (_v1(reference_env=np.ones(64, np.float32)),
-                           ["amw_tpu/ops/spectral.py"]),
 }
 
 

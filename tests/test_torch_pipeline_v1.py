@@ -122,26 +122,21 @@ def test_short_clip_unfused_path_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     {"denoise_strength": 0.5},
-    {"reference_env": np.ones(8, np.float32)},
+    {"reference_env": np.ones(4097, np.float32)},
     {"compressor": "envelope"},
 ])
 def test_unported_stage_raises(kw):
-    """An unported stage raises naming its ROADMAP item.  The envelope
-    compressor is ported since: its pipeline builds and matches the JAX
-    package's."""
+    """The v1 stages that raised while unported (the envelope compressor,
+    the spectral denoiser, the reference match) are ported: each pipeline
+    builds and matches the JAX package's."""
     spec = GraphSpec(sr=SR, n=SR, channels=2)
-    if kw.get("compressor") == "envelope":
-        jp, jfn, jnames = jax_build(JSpec(sr=SR, n=SR, channels=2), **kw)
-        _, tfn, tnames = build_v1_pipeline(spec, device="cpu", **kw)
-        assert tnames == jnames
-        x = _track(1.0, 10)
-        want = np.asarray(jfn(x, jax.device_put(jp)))
-        got = tfn(torch.from_numpy(x),
-                  params_from_jax(jp, device="cpu")).numpy()
-        assert _db(float(np.max(np.abs(got - want)))) <= BAR_DBFS
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_v1_pipeline(spec, device="cpu", **kw)
+    jp, jfn, jnames = jax_build(JSpec(sr=SR, n=SR, channels=2), **kw)
+    _, tfn, tnames = build_v1_pipeline(spec, device="cpu", **kw)
+    assert tnames == jnames
+    x = _track(1.0, 10)
+    want = np.asarray(jfn(x, jax.device_put(jp)))
+    got = tfn(torch.from_numpy(x), params_from_jax(jp, device="cpu")).numpy()
+    assert _db(float(np.max(np.abs(got - want)))) <= BAR_DBFS
 
 
 @pytest.mark.parametrize("kw", [
