@@ -64,3 +64,13 @@ DYNAMIC_EQ_MASTERING_BANDS = (
     {"freq":  8000, "q": 1.2, "threshold_db": -16, "ratio": 4.0, "attack_ms":  2, "release_ms":  40, "max_cut_db": -8},
     {"freq": 12000, "q": 0.8, "threshold_db": -18, "ratio": 2.0, "attack_ms":  5, "release_ms":  60, "max_cut_db": -4},
 )
+
+# Schroeder reverb presets:
+# name -> (decay_sec, comb_delays_ms, comb_gains, allpass_delays_ms, allpass_gains)
+REVERB_PRESETS = {
+    "plate":     (1.2, (29, 37, 41, 53),    (0.7, 0.65, 0.6, 0.55),     (5, 7),   (0.5, 0.4)),
+    "room":      (0.6, (23, 31, 43, 47),    (0.5, 0.45, 0.4, 0.35),     (3, 5),   (0.4, 0.3)),
+    "hall":      (2.2, (47, 53, 61, 71),    (0.75, 0.7, 0.65, 0.6),     (8, 11),  (0.5, 0.45)),
+    "theater":   (3.5, (59, 67, 73, 83),    (0.78, 0.73, 0.68, 0.63),   (10, 14), (0.52, 0.45)),
+    "cathedral": (5.0, (97, 103, 109, 127), (0.82, 0.78, 0.74, 0.7),    (15, 19), (0.55, 0.48)),
+}

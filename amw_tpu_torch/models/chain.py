@@ -7,13 +7,14 @@ every enabled module, with the per-module ``amount`` dry/wet blend
 (base.py:33-50), the peephole fusions of adjacent modules, and the final
 clip/NaN scrub of chain.py:93-94.
 
-Failure semantics are the JAX package's with one exception.  A builder that
-raises at build time is bypassed and recorded in ``bypassed`` (the
+Failure semantics are the JAX package's with one exception.  A builder
+that raises at build time is bypassed and recorded in ``bypassed`` (the
 reference bypasses a module that fails), and a fusion that fails to build
-falls back to the separate modules.  A ``NotImplementedError``, however, is
-what the port raises for a module whose op is not ported yet (it names the
-``amw_tpu`` module to port); it propagates, so that a chain never quietly skips a module
-the JAX package runs.
+falls back to the separate modules.  A ``NotImplementedError``, however,
+is what the port raises for an op it does not have; it propagates, so
+that a chain never quietly skips a module the JAX package runs.  Every
+module of ``MODULE_BUILDERS`` is ported (the reverb and the true-peak
+limiter last), so none raises it today.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from ..ops import fused as ops_fused
 from ..ops.bands import build_dynamics
 from ..ops.dynamics import build_maximizer_transient_aware
 from ..ops.exciter import build_harmonic_exciter
+from ..ops.reverb import build_reverb
 from ..ops.stereo import build_stereo_imager
+from ..ops.tplimit import build_true_peak_limiter
 from ..spec import GraphSpec
 
 
@@ -102,15 +105,17 @@ def _b_imager(spec, cfg, device):
 
 
 def _b_reverb(spec, cfg, device):
-    raise NotImplementedError(
-        "the reverb module is not ported to amw_tpu_torch yet (ROADMAP.md, "
-        "'Modules to port': amw_tpu/ops/reverb.py)")
+    return build_reverb(
+        spec, reverb_type=str(cfg.get("reverb_type", "plate")),
+        decay_sec=float(cfg.get("decay_sec", 1.2)),
+        mix=float(cfg.get("mix", 0.15)), mix_mid=cfg.get("mix_mid"),
+        mix_side=cfg.get("mix_side"), device=device)
 
 
 def _b_true_peak(spec, cfg, device):
-    raise NotImplementedError(
-        "the true-peak limiter module is not ported to amw_tpu_torch yet "
-        "(ROADMAP.md, 'Modules to port': amw_tpu/ops/tplimit.py)")
+    return build_true_peak_limiter(
+        spec, ceiling_db=float(cfg.get("ceiling_db", -1.5)),
+        lookahead_ms=float(cfg.get("lookahead_ms", 1.5)), device=device)
 
 
 MODULE_BUILDERS: dict[str, Callable] = {

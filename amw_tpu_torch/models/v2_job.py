@@ -4,11 +4,16 @@ before/after loudness and the validation stats of every track.
 
 Mirrors ``_run_mastering_job_v2`` (routers/mastering.py:443-637): PRE =
 [rumble_filter] [spectral_denoise] [de-esser]; POST = [transient_designer]
-[parallel_compression] [dynamic_eq]; then the 6 ms output fade-in.  The
-true-peak limiter and vocal isolation are not ported: asking for them
-raises ``NotImplementedError`` naming the ``amw_tpu`` module to port.  The JAX graph's progress token (host
-callbacks per stage) has no counterpart here (ROADMAP.md, 'Modules to
-port': amw_tpu/runtime/progress.py).
+[parallel_compression] [dynamic_eq] [true_peak_limiter]; then the 6 ms
+output fade-in.  Vocal isolation is not a stage of the graph: the JAX
+engine runs the separator on the decoded track before the graph and
+drops ``apply_vocal_isolation`` from the pro dict
+(amw_tpu/runtime/engine.py), so asking the graph for it raises
+``NotImplementedError`` telling the caller to run
+``amw_tpu_torch.models.vocal.isolate_vocal`` first, until the engine is
+ported.  The JAX graph's progress token (host callbacks per stage) has no
+counterpart here (ROADMAP.md, 'Modules to port':
+amw_tpu/runtime/progress.py).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from ..ops.dynamics import (build_deesser, build_dynamic_eq,
                             build_transient_designer)
 from ..ops.eq import build_rumble_filter
 from ..ops.spectral import build_spectral_denoise
+from ..ops.tplimit import build_true_peak_limiter
 from ..spec import GraphSpec
 from .chain import as_batch, build_chain_ops, default_chain_config
 
@@ -39,12 +45,6 @@ def resolve_denoise(pro: dict) -> tuple[float, float]:
     return 0.0, 15.0
 
 
-def _not_ported(what: str, module: str):
-    raise NotImplementedError(
-        f"{what} is not ported to amw_tpu_torch yet (ROADMAP.md, 'Modules "
-        f"to port': {module})")
-
-
 def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
                        pro: dict | None = None, target_lufs: float = -14.0,
                        style: str = "standard", *, device=None):
@@ -59,11 +59,12 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
     dev = resolve_device(device)
     pro = pro or {}
     if pro.get("apply_vocal_isolation"):
-        _not_ported("vocal isolation (apply_vocal_isolation)",
-                    "amw_tpu/models/vocal.py, amw_tpu/models/htdemucs_jax.py")
-    if pro.get("true_peak_enabled"):
-        _not_ported("the true-peak limiter (true_peak_enabled)",
-                    "amw_tpu/ops/tplimit.py")
+        raise NotImplementedError(
+            "apply_vocal_isolation is applied before the graph by the engine "
+            "(amw_tpu/runtime/engine.py), which is not ported to "
+            "amw_tpu_torch yet (ROADMAP.md, 'Modules to port'): run "
+            "amw_tpu_torch.models.vocal.isolate_vocal on the track first and "
+            "drop the flag")
     stages = []
 
     def add(name, built):
@@ -103,6 +104,12 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
              basic.parallel_compression(x, mix=_m)))
     if pro.get("dynamic_eq_enabled"):
         add("dynamic_eq", build_dynamic_eq(spec, device=dev))
+    if pro.get("true_peak_enabled"):
+        # the last gain stage before the fade, so nothing after it can
+        # raise the true peak again
+        add("true_peak_limiter", build_true_peak_limiter(
+            spec, ceiling_db=float(pro.get("true_peak_ceiling_db", -1.5)),
+            device=dev))
     add("output_fade_in",
         ([], lambda x, p: basic.output_edge_fade_in(x, spec.sr, 6.0)))
 

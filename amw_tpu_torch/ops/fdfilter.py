@@ -9,6 +9,7 @@ rFFT → complex multiply → irFFT (``torch.fft``, cuFFT on the GPU):
                          odd extension and steady-state initialisation
                          (``exact=True``), or one fused ``|H|²`` pass.
 - :func:`fftconvolve_same_fd` — FIR convolution with 'same' cropping.
+- :func:`resample_fft`  — ``scipy.signal.resample``'s spectrum surgery.
 
 :func:`box_smooth_same` (the de-esser's gain smoother) runs the CUDA box
 kernel ``csrc/box_smooth.cu`` on a GPU tensor and its plain PyTorch
@@ -132,6 +133,44 @@ def fftconvolve_same_fd(x: torch.Tensor, h: torch.Tensor, nfft: int):
                         * torch.fft.rfft(h, n=nfft, dim=-1), n=nfft, dim=-1)
     start = (L - 1) // 2
     return y[..., start:start + n]
+
+
+def resample_plan(n_in: int, n_out: int):
+    """Always ``None``.  The JAX package builds Bluestein (chirp-z) tables
+    here when either length lies outside XLA-TPU's native FFT sizes
+    ({1, 3, 5}·2^k), which it would otherwise lower as an O(n²) DFT
+    matmul; cuFFT and PyTorch's CPU FFT take any length, so the port
+    resamples with plain transforms and needs no tables.  Kept so that
+    callers have the JAX package's interface."""
+    return None
+
+
+def resample_fft(x: torch.Tensor, n_out: int, plan=None) -> torch.Tensor:
+    """FFT resampling of the trailing axis with ``scipy.signal.resample``'s
+    semantics for real input (reference: pipeline.py:920-936, the
+    exciter's oversampling and ``/api/v2/upscale``): the spectrum truncated
+    or zero-padded, the Nyquist bin doubled on the way down (to an even
+    length) and halved on the way up (from an even length), the result
+    scaled by ``n_out / n_in``.  ``plan``: :func:`resample_plan`'s result,
+    or the JAX package's tables, which the port does not need (ignored)."""
+    n_in = x.shape[-1]
+    if n_out == n_in:
+        return x
+    nyq_out = n_out // 2 + 1
+    X = torch.fft.rfft(x, dim=-1)
+    if n_out < n_in:
+        X = X[..., :nyq_out]
+        if n_out % 2 == 0:
+            # the new Nyquist bin gathers both conjugate halves of the old
+            # interior bin (scipy doubles it; irfft uses its real part once)
+            X = torch.cat([X[..., :-1], X[..., -1:] * 2.0], dim=-1)
+    else:
+        if n_in % 2 == 0:
+            # the old Nyquist bin becomes an interior bin: split between the
+            # positive and the (implicit) negative frequency
+            X = torch.cat([X[..., :-1], X[..., -1:] * 0.5], dim=-1)
+        X = F.pad(X, (0, nyq_out - X.shape[-1]))
+    return torch.fft.irfft(X, n=n_out, dim=-1) * (n_out / n_in)
 
 
 # Widest box the CUDA kernel takes (csrc/box_smooth.cu: the generic path

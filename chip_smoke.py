@@ -86,6 +86,22 @@ Phases, each printing JSON lines:
              reference match leaves it far below the target), a profile,
              and each spectral stage alone (CUDA events) with its share of
              the batch's device time;
+   finish  — the last DSP options (torch.fft, reductions and elementwise
+             passes, no kernel of their own but the exciter's 2x high
+             pass): ``v2_finish_180s``, the v2 180 s batch with the pro set
+             plus the true-peak ceiling at -1.0 dBTP and a chain config
+             with the plate reverb in M/S and the exciter at 2x (its high
+             pass at 2^24 on kernels 4, 8 and 5, counted by plan), with
+             every output's true peak checked, a profile and each new
+             stage alone; ``export_180s``, that output resampled to 48
+             kHz, TPDF dither and int16 (the resampler against the CPU
+             path, TPDF statistics on silence, the shaped noises
+             high-passed); ``options_finish_180s``, one 180 s track
+             through the chain with the exciter at 4x (cuFFT at 2^25), the
+             hall reverb and the limiter as a chain module at -7.0 dBTP,
+             where it engages; ``vocal_180s``, the DSP vocal separator
+             (``isolate_vocal``) on a stereo and a mono 180 s track, one a
+             call; each with launch counts and parity with the CPU path;
 9. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
@@ -117,14 +133,20 @@ from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
 from amw_tpu_torch.models import (analyze, build_v1_pipeline,
                                   build_v2_job_graph, default_chain_config,
                                   lufs_analyze_tool)
+from amw_tpu_torch.convert import to_device
 from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.models.v2_job import resolve_denoise
-from amw_tpu_torch.ops import _cuda, design, fdfilter, meters, scan, validctx
+from amw_tpu_torch.models.vocal import isolate_vocal
+from amw_tpu_torch.ops import (_cuda, design, dither, fdfilter, meters, scan,
+                               validctx)
 from amw_tpu_torch.ops import fft_staged as fs
 from amw_tpu_torch.ops.bands import BandMap
+from amw_tpu_torch.ops.exciter import build_harmonic_exciter
+from amw_tpu_torch.ops.reverb import build_reverb
 from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         build_spectral_denoise,
                                         spectral_envelope)
+from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
 from amw_tpu_torch.scripts.ab_bccb import kernel_ms
 
 SR = 44100
@@ -162,6 +184,19 @@ V2_DENOISE_PRO = {**V2_PRO, "denoise_preset": "medium"}
 V1_DENOISE = 0.5
 REFERENCE_SEED = 99
 SHORT_CLIP_S = 2.0
+# the last DSP options: the pro panel's true-peak ceiling at the frontend's
+# default (frontend/index.html:86) on top of V2_PRO; every output's true
+# peak is held to it within TP_SLACK_DB
+TP_CEILING_DB = -1.0
+TP_SLACK_DB = 0.05
+V2_FINISH_PRO = {**V2_PRO, "true_peak_enabled": True,
+                 "true_peak_ceiling_db": TP_CEILING_DB}
+# the chain module's ceiling in the options run: below that chain's output
+# true peak without a limiter on this material (about -5.4 dBTP), so that
+# the module limits there (the v2 batch stays under -1.0 without it)
+OPTIONS_TP_CEILING_DB = -7.0
+EXPORT_SR = 48000  # the export path (bench.py:368-396): 44.1 -> 48 kHz
+VOCAL_SEED = 30
 # the launch counters of the kernels' wrappers, by kernel name
 COUNTERS = {
     "box_smooth_same": fdfilter.box_smooth_cuda,
@@ -1077,35 +1112,53 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
     return launches, (lambda: fn(x_d, params, nv_d)), wall, y_np
 
 
-def job_expected(n: int, rows: int, style: str, options: bool = False
-                 ) -> dict:
-    """Each kernel's launches on one call of the v2 job with ``V2_PRO``
-    over ``rows`` signal rows (tracks x channels) of ``n`` samples, as the
-    code reads (amw_tpu_torch/models/v2_job.py and the ops it builds).
-    ``options``: the chain config of :func:`options_config`."""
+def job_expected(n: int, rows: int, style: str, options: bool = False,
+                 pro: dict = V2_PRO, exciter_os: int = 0) -> dict:
+    """Each kernel's launches on one call of the v2 job with the pro set
+    ``pro`` (``V2_PRO`` or a subset of its stages) over ``rows`` signal
+    rows (tracks x channels) of ``n`` samples, as the code reads
+    (amw_tpu_torch/models/v2_job.py and the ops it builds).  ``options``:
+    the chain config of :func:`options_config`; ``exciter_os``: 0 for the
+    default config's exciter (on where ``style`` enables it), else a config
+    whose exciter runs at that oversampling (its high pass at ``n *
+    exciter_os`` samples).  The reverb and the true-peak limiter run no
+    kernel (cuFFT and elementwise passes)."""
     e = {name: 0 for name in COUNTERS}
-    # the de-esser: envelope -> gain, box (scan.deesser_gain_combine)
-    e["env_gain"] = e["box_smooth_same"] = 1
+    dyn_eq = bool(pro.get("dynamic_eq_enabled"))
+    if pro.get("deesser_enabled"):
+        # the de-esser: envelope -> gain, box (scan.deesser_gain_combine)
+        e["env_gain"] = e["box_smooth_same"] = 1
     # the envelope followers: the transient designer's fast and slow, one
     # per dynamic-EQ band; routed by scan.short_route as in the JAX package
-    ballistics = [(0.0005, 0.005), (0.005, 0.1)] + [
-        (b["attack_ms"] / 1000.0, b["release_ms"] / 1000.0)
-        for b in DYNAMIC_EQ_MASTERING_BANDS]
+    ballistics = [(0.0005, 0.005), (0.005, 0.1)] if (
+        "transient_attack" in pro) else []
+    if dyn_eq:
+        ballistics += [(b["attack_ms"] / 1000.0, b["release_ms"] / 1000.0)
+                       for b in DYNAMIC_EQ_MASTERING_BANDS]
     for att_s, rel_s in ballistics:
         a, r = scan.ar_coefs(SR, att_s, rel_s)
         short = scan.short_route(n, scan.warmup_len(a, r))
         e["env_rows" if short else "env_scan"] += 1
-    if fs.plan_ok(design.tpu_fft_plan(n)):  # the staged FFT, from ~5.8 s
-        packed = rows % 2 == 0
+    packed = rows % 2 == 0
+
+    def fast_passes(count: int) -> None:
         # fast zero-phase passes (zphase.ZP on the staged FFT ->
-        # fft_staged.apply_response): rumble, the de-esser's sidechain, one
-        # per dynamic-EQ band, the exciter's high pass where the style
-        # enables it
-        passes = 2 + len(DYNAMIC_EQ_MASTERING_BANDS) + int(
-            STYLE_CONFIGS[style]["exciter_db"] >= 0.05)
-        e["fft_bc_cb"] = passes
-        e["fft_stage_a"] = passes * (1 if packed else 2)
-        e["fft_stage_a_inv_join"] = passes if packed else 0
+        # fft_staged.apply_response)
+        e["fft_bc_cb"] += count
+        e["fft_stage_a"] += count * (1 if packed else 2)
+        e["fft_stage_a_inv_join"] += count if packed else 0
+
+    if exciter_os > 1 and fs.plan_ok(design.tpu_fft_plan(n * exciter_os)):
+        fast_passes(1)  # the exciter's high pass at the work rate
+    if fs.plan_ok(design.tpu_fft_plan(n)):  # the staged FFT, from ~5.8 s
+        # rumble, the de-esser's sidechain, one per dynamic-EQ band, the
+        # exciter's high pass where it runs at the track's rate
+        exciter = (exciter_os == 1 or exciter_os == 0
+                   and STYLE_CONFIGS[style]["exciter_db"] >= 0.05)
+        fast_passes(int(bool(pro.get("rumble_enabled")))
+                    + int(bool(pro.get("deesser_enabled")))
+                    + (len(DYNAMIC_EQ_MASTERING_BANDS) if dyn_eq else 0)
+                    + int(exciter))
         # the fused sites: target_curve+dynamics (roundtrip_multi_reduce)
         # and normalize+final balance+style EQ (roundtrip_multi)
         e["fft_bccb_multi"] = 2
@@ -1141,18 +1194,85 @@ def options_config() -> dict:
     return cfg
 
 
+def finish_config() -> dict:
+    """The default chain config with the reverb on (plate, M/S: mix_mid
+    0.12, mix_side 0.2) and the exciter at 0.6 dB, 2x oversampled."""
+    cfg = default_chain_config()
+    for m in cfg["modules"]:
+        if m["id"] == "reverb":
+            m.update(enabled=True, mix_mid=0.12, mix_side=0.2)
+        if m["id"] == "exciter":
+            m.update(enabled=True, exciter_db=0.6, oversample=2)
+    return cfg
+
+
+def options_finish_config() -> dict:
+    """The default chain config with the exciter at 0.6 dB, 4x
+    oversampled, the hall reverb mixed plainly (``mix`` 0.15 on every
+    channel) and the true-peak limiter as the last chain module, at
+    ``OPTIONS_TP_CEILING_DB``."""
+    cfg = default_chain_config()
+    for m in cfg["modules"]:
+        if m["id"] == "reverb":
+            m.update(enabled=True, reverb_type="hall", decay_sec=2.2)
+        if m["id"] == "exciter":
+            m.update(enabled=True, exciter_db=0.6, oversample=4)
+    cfg["modules"].append({"id": "true_peak_limiter", "enabled": True,
+                           "ceiling_db": OPTIONS_TP_CEILING_DB,
+                           "amount": 1.0})
+    return cfg
+
+
+# kernels 4, 8 and 5: the dispatcher that calls each one's counted wrapper
+# on a CUDA tensor, and the position of its nfft
+PLAN_ARGS = {"fft_stage_a": ("_stage_a", 2),
+             "fft_bc_cb": ("_stage_bc_cb", 3),
+             "fft_stage_a_inv_join": ("_stage_a_inv_join", 3)}
+
+
+@contextlib.contextmanager
+def staged_plans():
+    """Inside the block, the plan of every launch of kernels 4, 8 and 5:
+    yields ``{kernel: {nfft: launches}}``, filled as they launch (on a
+    CUDA tensor each dispatcher call launches its kernel once through the
+    wrapper, or raises; the counters stay the wrappers' own)."""
+    seen: dict = {}
+    originals = {}
+    for name, (attr, pos) in PLAN_ARGS.items():
+        f = originals[attr] = getattr(fs, attr)
+
+        def recorded(*a, _f=f, _name=name, _pos=pos, **k):
+            if a[0].is_cuda:
+                nfft = a[_pos] if len(a) > _pos else k["nfft"]
+                plans = seen.setdefault(_name, {})
+                plans[nfft] = plans.get(nfft, 0) + 1
+            return _f(*a, **k)
+
+        setattr(fs, attr, recorded)
+    try:
+        yield seen
+    finally:
+        for attr, f in originals.items():
+            setattr(fs, attr, f)
+
+
 def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
              channels: int, style: str, cpu_tracks, reps: int = 5,
-             options: bool = False, pro: dict = V2_PRO):
+             options: bool = False, pro: dict = V2_PRO,
+             config: dict | None = None, exciter_os: int = 0,
+             tp_ceiling_db: float | None = None):
     """Master ``batch`` tracks of ``dur`` s through the v2 job (default
     chain config at ``style`` and its target loudness, the pro set ``pro``;
-    with ``options`` the config of :func:`options_config`) on the card: launch
+    with ``options`` the config of :func:`options_config`, else ``config``
+    where given, whose exciter runs at ``exciter_os``) on the card: launch
     counts against :func:`job_expected`, output checks, parity of
     ``cpu_tracks`` with the port's CPU path, the steady-state realtime
-    factor.  Returns the launch counts, a steady-state step and its wall
-    time."""
+    factor; with ``tp_ceiling_db`` also every output's true peak
+    (``meters.true_peak_dbfs`` per track on the card) against that ceiling.
+    Returns the launch counts, a steady-state step, its wall time, the
+    stage names and the output (host)."""
     n = int(SR * dur)
-    config = options_config() if options else None
+    config = options_config() if options else config
     target = STYLE_CONFIGS[style]["lufs"]
     t0 = time.perf_counter()
     xb, nv = make_batch(dur, valid_s, batch, channels, seed0=10)
@@ -1164,20 +1284,35 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
     build_s = time.perf_counter() - t0
     x_d = torch.from_numpy(xb).to(dev)
     nv_d = torch.from_numpy(nv).to(dev)
-    expect = job_expected(n, batch * channels, style, options)
+    expect = job_expected(n, batch * channels, style, options, pro,
+                          exciter_os)
 
     with torch.no_grad():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        res = fn(x_d, params, nv_d)
-        torch.cuda.synchronize()
+        with staged_plans() as plans:
+            res = fn(x_d, params, nv_d)
+            torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         check(launches == expect, f"{label}: launches {launches}, expected "
               f"{expect}")
+        if exciter_os > 1 and fs.plan_ok(design.tpu_fft_plan(n * exciter_os)):
+            # the exciter's work-rate high pass, one launch of each
+            plan = design.tpu_fft_plan(n * exciter_os)
+            check(all(plans.get(k, {}).get(plan) == 1 for k in PLAN_ARGS),
+                  f"{label}: launches by plan {plans}, expected one of each "
+                  f"of {list(PLAN_ARGS)} at {plan}")
+        tp_db = None
+        if tp_ceiling_db is not None:
+            tp_db = [float(meters.true_peak_dbfs(res["out"][i, :, :nv[i]]))
+                     for i in range(batch)]
+            check(max(tp_db) <= tp_ceiling_db + TP_SLACK_DB,
+                  f"{label}: true peaks {tp_db} dBTP above the ceiling "
+                  f"{tp_ceiling_db}")
         res = {k: v.cpu().numpy() for k, v in res.items()}
         y = res.pop("out")
         check(y.shape == xb.shape, f"{label}: output shape {y.shape}")
@@ -1228,20 +1363,23 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
         wall = (time.perf_counter() - t0) / reps
 
     emit({"phase": "v2", "run": label, "stages": names, "style": style,
-          "config": "options" if options else "default",
+          "config": ("options" if options else
+                     "default" if config is None else "custom"),
           "pro": pro, "batch": batch, "channels": channels,
           "track_s": dur, "n_valid": nv.tolist(), "data_s": data_s,
           "params_build_s": build_s, "first_batch_s": first_s,
           "launches": launches, "expected_launches": expect,
+          "launches_by_plan": {k: {str(p): c for p, c in v.items()}
+                               for k, v in plans.items()},
           "peak_device_gb": peak_gb, "target_lufs": target,
           "before_lufs": res["before_lufs"].tolist(),
           "after_lufs": after.tolist(), "peak": res["peak"].tolist(),
           "cpu_parity_tracks": idx, "max_err_vs_cpu": err,
           "max_err_vs_cpu_dbfs": err_db, "max_lu_delta_vs_cpu": d_lu,
           "max_meter_delta_vs_cpu": d_meter, "cpu_plain_s": cpu_s,
-          "wall_s_per_batch": wall,
+          "true_peak_dbtp": tp_db, "wall_s_per_batch": wall,
           "realtime_factor": batch * dur / wall})
-    return launches, (lambda: fn(x_d, params, nv_d)), wall, names
+    return launches, (lambda: fn(x_d, params, nv_d)), wall, names, y
 
 
 @contextlib.contextmanager
@@ -1432,6 +1570,162 @@ def phase_analyze(dev) -> dict:
     return out
 
 
+def tilt(power: np.ndarray, freqs: np.ndarray) -> float:
+    """Mean power above 15 kHz over the mean below 30 Hz (DC excluded):
+    the high-pass check of the JAX package's noise-shaping test
+    (tests/test_coverage_extra.py)."""
+    lo = power[..., (freqs > 0) & (freqs < 30.0)].mean()
+    return float(power[..., freqs > 15000.0].mean() / lo)
+
+
+def phase_export(dev, y: np.ndarray, reps: int = 3) -> None:
+    """The export path (bench.py:368-396) on the card: the v2 batch's
+    output ``y`` [B, C, n] as rows resampled 44.1 -> 48 kHz
+    (``fdfilter.resample_fft``), TPDF dither (``dither.dither_noise`` from
+    a seeded ``torch.Generator``) and int16 (``dither.quantize16``); no
+    kernel of its own (cuFFT and elementwise passes).  Checks: no kernel
+    launched, int16 out, the resampled float finite within full scale and
+    one row against the port's CPU path (<= -90 dBFS), that row's int16
+    equal to ``quantize16`` on the CPU with the same noise; TPDF on a
+    silent input (every value in (-1, 1), |mean| < 0.01 LSB, variance
+    within 2 % of 1/6, int16 in {-1, 0, 1}); ``ns_e`` and ``ns_itu`` noise
+    high-passed (the top octave > 3x near DC) with the filter's own tilt
+    (within 0.3-3x of |H|^2's).  Reports the wall time per batch and the
+    realtime factor."""
+    rows = np.ascontiguousarray(y.reshape(-1, y.shape[-1]))
+    n = rows.shape[-1]
+    n_out = n * EXPORT_SR // SR
+    check(n_out * SR == n * EXPORT_SR, f"export: {n} samples at {SR} Hz")
+    x_d = torch.from_numpy(rows).to(dev)
+    gen = torch.Generator(device=dev)
+
+    def export(seed: int = 0):
+        gen.manual_seed(seed)
+        z = fdfilter.resample_fft(x_d, n_out)
+        noise = dither.dither_noise(gen, z.shape, "tpdf", device=dev)
+        return z, noise, dither.quantize16(z, noise)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        z, noise, q = export()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        check(not any(launches.values()), f"export: launches {launches}")
+        check(q.dtype == torch.int16 and tuple(q.shape) == (rows.shape[0],
+                                                           n_out),
+              f"export: {q.dtype} {tuple(q.shape)}")
+        check(bool(torch.isfinite(z).all()), "export: non-finite resample")
+        z_peak = float(z.abs().max())
+        check(z_peak <= 1.0, f"export: resampled peak {z_peak}")
+        row = rows.shape[0] - 2  # the padded 97.5 s track's left channel
+        z_cpu = fdfilter.resample_fft(torch.from_numpy(rows[row]), n_out)
+        err = float((z[row].cpu() - z_cpu).abs().max())
+        err_db = 20 * np.log10(max(err, 1e-30))
+        check(err_db <= PARITY_DBFS,
+              f"export: resample GPU vs CPU {err_db:.1f} dBFS")
+        q_cpu = dither.quantize16(z[row].cpu(), noise[row].cpu())
+        check(torch.equal(q[row].cpu(), q_cpu),
+              "export: int16 on the card differs from quantize16 on the CPU")
+        del z, noise, q
+
+        gen.manual_seed(1)
+        noise = dither.dither_noise(gen, (rows.shape[0], n_out), "tpdf",
+                                    device=dev)
+        q0 = dither.quantize16(torch.zeros_like(noise), noise)
+        nd = noise.double()
+        tpdf = {"max_abs": float(nd.abs().max()), "mean": float(nd.mean()),
+                "var": float(nd.var()),
+                "int16_values": sorted(torch.unique(q0).tolist())}
+        del noise, nd, q0
+        check(tpdf["max_abs"] < 1.0 and abs(tpdf["mean"]) < 0.01
+              and abs(tpdf["var"] - 1.0 / 6.0) <= 0.02 / 6.0
+              and set(tpdf["int16_values"]) <= {-1, 0, 1},
+              f"export: TPDF statistics {tpdf}")
+
+        shaped = {}
+        m = 1 << 16
+        freqs = np.fft.rfftfreq(m, 1 / SR)
+        for kind, (b, a) in (("ns_e", ((1.0, -1.0), (1.0, -0.99))),
+                             ("ns_itu", ((1.0, -2.0, 1.0),
+                                         (1.0, -1.96, 0.9604)))):
+            ns = dither.dither_noise(gen, (2, m), kind, device=dev)
+            power = (torch.fft.rfft(ns.double(), dim=-1).abs() ** 2
+                     ).cpu().numpy()
+            want = tilt(np.abs(design.freqz(np.asarray(b), np.asarray(a),
+                                            m)) ** 2, freqs)
+            got = tilt(power, freqs)
+            shaped[kind] = {"tilt": got, "filter_tilt": want}
+            check(got > 3.0 and 0.3 < got / want < 3.0,
+                  f"export: {kind} noise not high-passed: {shaped[kind]}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            export(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    dur = n / SR
+    emit({"phase": "export", "rows": rows.shape[0], "n_in": n,
+          "n_out": n_out, "sr_out": EXPORT_SR, "dither": "tpdf",
+          "launches": launches, "first_batch_s": first_s,
+          "resampled_peak": z_peak, "cpu_parity_row": row,
+          "max_err_vs_cpu": err, "max_err_vs_cpu_dbfs": err_db,
+          "tpdf_silence": tpdf, "noise_shaping": shaped,
+          "wall_s_per_batch": wall,
+          "realtime_factor": rows.shape[0] / 2 * dur / wall})
+
+
+def phase_vocal(dev, reps: int = 3) -> None:
+    """``models.vocal.isolate_vocal`` (the DSP separator: STFT on cuFFT,
+    no kernel of its own) on one stereo and one mono 180 s track, one
+    track a call as the engine calls it (host array in, host array out):
+    no kernel launched, output shape, finite, within full scale, against
+    the port's CPU path (<= -90 dBFS, <= 0.1 LU); wall time per call and
+    realtime factor."""
+    out = {}
+    for label, channels in (("stereo", 2), ("mono", 1)):
+        x = make_track(SR, LONG[0], seed=VOCAL_SEED)[:channels]
+        n = x.shape[-1]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        y = isolate_vocal(x, SR, device=dev)
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        check(not any(launches.values()), f"vocal {label}: launches "
+              f"{launches}")
+        check(y.shape == x.shape and y.dtype == np.float32,
+              f"vocal {label}: {y.dtype} {y.shape}")
+        check(bool(np.all(np.isfinite(y))) and float(np.abs(y).max()) <= 1.0,
+              f"vocal {label}: non-finite or over full scale")
+        t0 = time.perf_counter()
+        y_cpu = isolate_vocal(x, SR, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = float(np.max(np.abs(y - y_cpu)))
+        err_db = 20 * np.log10(max(err, 1e-30))
+        nv = np.array([n], np.int32)
+        d_lu = float(np.max(np.abs(track_lufs(y[None], nv)
+                                   - track_lufs(y_cpu[None], nv))))
+        check(err_db <= PARITY_DBFS,
+              f"vocal {label}: GPU vs CPU {err_db:.1f} dBFS")
+        check(d_lu <= PARITY_LU, f"vocal {label}: GPU vs CPU {d_lu} LU")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            isolate_vocal(x, SR, device=dev)
+        wall = (time.perf_counter() - t0) / reps
+        out[label] = {"channels": channels, "launches": launches,
+                      "first_call_s": first_s, "max_err_vs_cpu": err,
+                      "max_err_vs_cpu_dbfs": err_db,
+                      "max_lu_delta_vs_cpu": d_lu, "cpu_plain_s": cpu_s,
+                      "wall_s_per_call": wall,
+                      "realtime_factor": n / SR / wall}
+    emit({"phase": "vocal", "run": "vocal_180s", "track_s": LONG[0],
+          "tracks": out})
+
+
 def phase_profile(step, wall_ms: float, label: str, reps: int = 3):
     """Device time by CUDA kernel over ``reps`` steady-state batches
     (torch.profiler, CUPTI), and the device's idle share of the
@@ -1479,7 +1773,7 @@ def phase_stages(dev, label: str, stages: dict, seed0: int,
     out = {}
     for name, build in stages.items():
         params, fn = build(spec, dev)
-        p_d = [torch.as_tensor(p, device=dev) for p in params]
+        p_d = to_device(params, dev)
         with torch.no_grad(), validctx.valid_length(nv_d):
             ms = cuda_ms(lambda: fn(x_d, p_d), reps=reps, warmup=1)
         out[name] = {"ms": ms, "share_of_device": (
@@ -1518,14 +1812,14 @@ def main() -> None:
 
     # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip, and one
     # 180 s track with the chain-config options of slice 4
-    v2, step, wall, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
-                                 "standard", cpu_tracks=(BATCH - 1,))
+    v2, step, wall, _, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
+                                    "standard", cpu_tracks=(BATCH - 1,))
     phase_profile(step, wall * 1e3, "v2_180s", reps=2)
     del step
-    mono, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
-                             "podcast", cpu_tracks=(0,), reps=3)
-    clip, _, _, names = phase_v2(dev, "v2_clip_2s", SHORT_CLIP_S, (), 1, 2,
-                                 "edm", cpu_tracks=(0,), reps=10)
+    mono, _, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
+                                "podcast", cpu_tracks=(0,), reps=3)
+    clip, _, _, names, _ = phase_v2(dev, "v2_clip_2s", SHORT_CLIP_S, (), 1,
+                                    2, "edm", cpu_tracks=(0,), reps=10)
     check({"chain:exciter", "chain:imager"} <= set(names),
           f"2 s edm clip: no exciter or imager in {names}")
     phase_v2(dev, "v2_options_180s", LONG[0], (), 1, 2, "standard",
@@ -1538,9 +1832,9 @@ def main() -> None:
         return lambda spec, d: build_spectral_denoise(spec, strength, pct,
                                                       device=d)
 
-    _, step, wall, _ = phase_v2(dev, "v2_denoise_180s", *LONG, BATCH, 2,
-                                "standard", cpu_tracks=(BATCH - 1,), reps=2,
-                                pro=V2_DENOISE_PRO)
+    _, step, wall, _, _ = phase_v2(dev, "v2_denoise_180s", *LONG, BATCH, 2,
+                                   "standard", cpu_tracks=(BATCH - 1,),
+                                   reps=2, pro=V2_DENOISE_PRO)
     busy = phase_profile(step, wall * 1e3, "v2_denoise_180s", reps=1)
     del step
     phase_stages(dev, "v2_denoise_180s",
@@ -1566,6 +1860,31 @@ def main() -> None:
         "spectral_denoise": denoise(V1_DENOISE, 15.0),
         "reference_match": lambda spec, d: build_reference_match(
             spec, ref_env, strength=0.8, device=d)}, 0, busy)
+
+    # the last DSP options: the v2 batch with the true-peak ceiling, the
+    # reverb in M/S and the exciter at 2x (its high pass on kernels 4, 8
+    # and 5 at 2^24), then its output through the export path; one track
+    # with the exciter at 4x (cuFFT at 2^25), the hall reverb and the
+    # limiter as a chain module; the DSP vocal separator
+    _, step, wall, _, y_fin = phase_v2(
+        dev, "v2_finish_180s", *LONG, BATCH, 2, "standard",
+        cpu_tracks=(BATCH - 1,), reps=2, pro=V2_FINISH_PRO,
+        config=finish_config(), exciter_os=2, tp_ceiling_db=TP_CEILING_DB)
+    busy = phase_profile(step, wall * 1e3, "v2_finish_180s", reps=1)
+    del step
+    phase_stages(dev, "v2_finish_180s", {
+        "true_peak_limiter": lambda spec, d: build_true_peak_limiter(
+            spec, TP_CEILING_DB, device=d),
+        "reverb": lambda spec, d: build_reverb(
+            spec, "plate", mix_mid=0.12, mix_side=0.2, device=d),
+        "exciter_os2": lambda spec, d: build_harmonic_exciter(
+            spec, 0.6, oversample=2, device=d)}, 10, busy)
+    phase_export(dev, y_fin)
+    del y_fin
+    phase_v2(dev, "options_finish_180s", LONG[0], (), 1, 2, "standard",
+             cpu_tracks=(0,), reps=3, pro={}, config=options_finish_config(),
+             exciter_os=4, tp_ceiling_db=OPTIONS_TP_CEILING_DB)
+    phase_vocal(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}

@@ -187,8 +187,16 @@ def test_constants_and_bell_design_match_jax():
 
 
 def test_oversampled_exciter_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texc.build_harmonic_exciter(TS, 0.6, oversample=2, **CPU)
+    """The exciter at ``oversample`` 2 raised while the resampler was not
+    ported; it now builds and matches the JAX package on a padded batch
+    (more cases in tests/test_torch_resample.py).  The port is fed the
+    JAX params, whose resampler slots hold Bluestein tables it ignores."""
+    jp, jfn = jexc.build_harmonic_exciter(JS, 0.6, oversample=2)
+    tfn = texc.build_harmonic_exciter(TS, 0.6, oversample=2, **CPU)[1]
+    jpd, tpd = jax.device_put(jp), params_from_jax(jp, **CPU)
+    x = _batch(11, nvs=NVS)
+    err = _err(lambda v: jfn(v, jpd), lambda v: tfn(v, tpd), x, NVS)
+    assert err <= ATOL
 
 
 # ---------------------------------------------------------------------------

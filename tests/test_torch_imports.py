@@ -138,3 +138,29 @@ def test_split_kernel_wrappers_refuse_cpu_tensors():
             fs.cb_cuda(y, y, resp, nfft, tabs)
     with pytest.raises(ValueError):
         fs.cb_multi_cuda(y, y, torch.zeros(2, 2, nfft), nfft, tabs)
+
+
+def test_finish_modules_are_checked():
+    """The no-JAX check above covers the last DSP options and the vocal
+    separator."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("ops/tplimit.py", "ops/reverb.py", "ops/dither.py",
+                "ops/fdfilter.py", "ops/exciter.py", "models/vocal.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+
+
+def test_finish_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from amw_tpu_torch import GraphSpec
+    from amw_tpu_torch.models import vocal
+    from amw_tpu_torch.ops import dither
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("AMW_HTDEMUCS_CKPT", raising=False)
+    spec = GraphSpec(sr=44100, n=44100, channels=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocal.build_vocal_isolation(spec, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocal.isolate_vocal(np.zeros((2, 4096), np.float32), 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dither.dither_noise(torch.Generator(), (2, 100))

@@ -136,35 +136,31 @@ def test_default_config_and_denoise_resolution_match_jax():
         assert tv2.resolve_denoise(pro) == jv2.resolve_denoise(pro)
 
 
-@pytest.mark.parametrize("module,ported", [
-    ({"id": "reverb", "enabled": True}, False),
-    ({"id": "true_peak_limiter", "enabled": True}, False),
-    ({"id": "target_curve", "phase_mode": "linear_phase"}, True),
-    ({"id": "exciter", "exciter_db": 0.6, "oversample": 2}, False),
-    ({"id": "dynamics", "compressor": "envelope"}, True),
+@pytest.mark.parametrize("module", [
+    {"id": "reverb", "enabled": True},
+    {"id": "true_peak_limiter", "enabled": True},
+    {"id": "target_curve", "phase_mode": "linear_phase"},
+    {"id": "exciter", "exciter_db": 0.6, "oversample": 2},
+    {"id": "dynamics", "compressor": "envelope"},
 ], ids=["reverb", "true_peak", "linear_phase", "exciter_os2",
         "envelope_compressor"])
-def test_unported_module_raises_not_bypassed(module, ported):
-    """An unported op raises and names its ROADMAP item: the chain never
-    records it as bypassed and runs on without it, as it would a module
-    whose build fails.  The ops ported since (the linear-phase target
-    curve, the envelope compressor) build under their own id, as in the
-    JAX package, and are not bypassed either."""
+def test_unported_module_raises_not_bypassed(module):
+    """The modules the port once lacked (each raised and named its
+    ``amw_tpu`` module, and the chain never recorded it as bypassed) are
+    ported: each builds under its own id, as in the JAX package, and is
+    not bypassed either, alone and inside the default config."""
     spec = GraphSpec(sr=SR, n=SR, channels=2)
     cfg = tchain.default_chain_config()
     cfg["modules"].insert(3, module)
-    if ported:
-        ids, _, _, byp = tchain.build_chain_ops(spec, {"modules": [module]},
-                                                device="cpu")
-        jids, _, _, jbyp = jchain.build_chain_ops(
-            JSpec(sr=SR, n=SR, channels=2), {"modules": [module]})
-        assert ids == jids == [module["id"]] and byp == jbyp == []
-        assert tv2.build_v2_job_graph(spec, cfg, device="cpu")[2]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tchain.build_chain_ops(spec, {"modules": [module]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv2.build_v2_job_graph(spec, cfg, device="cpu")
+    ids, _, _, byp = tchain.build_chain_ops(spec, {"modules": [module]},
+                                            device="cpu")
+    jids, _, _, jbyp = jchain.build_chain_ops(
+        JSpec(sr=SR, n=SR, channels=2), {"modules": [module]})
+    assert ids == jids == [module["id"]] and byp == jbyp == []
+    names = tv2.build_v2_job_graph(spec, cfg, device="cpu")[2]
+    assert names == jv2.build_v2_job_graph(JSpec(sr=SR, n=SR, channels=2),
+                                           cfg)[2]
+    assert f"chain:{module['id']}" in names
 
 
 def test_real_build_failure_is_bypassed_as_in_jax():
@@ -184,18 +180,24 @@ def test_real_build_failure_is_bypassed_as_in_jax():
     {"denoise_strength": 0.5}, {"denoise_preset": "vocal"},
     {"true_peak_enabled": True}, {"apply_vocal_isolation": True}])
 def test_unported_pro_stage_raises(pro):
-    """An unported pro stage raises naming its ROADMAP item.  The spectral
-    denoiser is ported since: it builds where the JAX package puts it
-    (tests/test_torch_spectral.py holds its output)."""
+    """The pro stages the port once lacked build where the JAX package puts
+    them, under its stage names: the spectral denoiser first
+    (tests/test_torch_spectral.py holds its output), the true-peak limiter
+    after the dynamic EQ (tests/test_torch_v2_finish.py).  Vocal isolation
+    is no stage of the graph: the JAX engine runs the separator before it
+    (amw_tpu/runtime/engine.py), so the port's graph raises and names the
+    engine (tests/test_torch_not_ported.py)."""
     spec = GraphSpec(sr=SR, n=SR)
-    if "denoise_strength" in pro or "denoise_preset" in pro:
-        names = tv2.build_v2_job_graph(spec, None, pro, device="cpu")[2]
-        assert names == jv2.build_v2_job_graph(JSpec(sr=SR, n=SR), None,
-                                               pro)[2]
-        assert names[0] == "spectral_denoise"
+    if pro.get("apply_vocal_isolation"):
+        with pytest.raises(NotImplementedError, match="engine.py"):
+            tv2.build_v2_job_graph(spec, None, pro, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv2.build_v2_job_graph(spec, None, pro, device="cpu")
+    names = tv2.build_v2_job_graph(spec, None, pro, device="cpu")[2]
+    assert names == jv2.build_v2_job_graph(JSpec(sr=SR, n=SR), None, pro)[2]
+    if pro.get("true_peak_enabled"):
+        assert names[-2:] == ["true_peak_limiter", "output_fade_in"]
+    else:
+        assert names[0] == "spectral_denoise"
 
 
 def test_compile_chain_matches_jax():
