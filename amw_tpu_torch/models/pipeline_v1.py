@@ -25,6 +25,7 @@ from ..ops.exciter import build_harmonic_exciter
 from ..ops.fused import build_normalize_then_final, build_target_then_deesser
 from ..ops.spectral import build_reference_match, build_spectral_denoise
 from ..ops.stereo import build_stereo_imager
+from ..runtime import progress
 from ..spec import GraphSpec
 from .chain import as_batch
 
@@ -44,8 +45,10 @@ def build_v1_pipeline(
 ):
     """Returns ``(params, fn, names)``.  ``params`` is the JAX package's
     nested parameter list as tensors on ``device`` (default ``cuda``);
-    ``fn(x, params, n_valid=None)`` masters ``x`` [C, N] or a batch
-    [B, C, N] (``n_valid``: [B] valid lengths of bucket-padded tracks)."""
+    ``fn(x, params, n_valid=None, prog_tok=None)`` masters ``x`` [C, N] or
+    a batch [B, C, N] (``n_valid``: [B] valid lengths of bucket-padded
+    tracks).  With ``prog_tok`` each finished stage is reported to
+    ``runtime.progress.stage_done`` (``models/v2_job.py``)."""
     dev = resolve_device(device)
     cfg = STYLE_CONFIGS.get(style, STYLE_CONFIGS["standard"])
     exciter_db = cfg.get("exciter_db", 0.0)
@@ -110,12 +113,14 @@ def build_v1_pipeline(
     params = to_device([list(s[1]) for s in stages], dev)
     fns = [s[2] for s in stages]
 
-    def fn(x, params, n_valid=None):
+    def fn(x, params, n_valid=None, prog_tok=None):
         xb, nv, single = as_batch(x, n_valid)
         with validctx.valid_length(nv):
-            for f, p in zip(fns, params):
+            for i, (f, p) in enumerate(zip(fns, params)):
                 # Keep bucket padding silent between stages.
                 xb = validctx.mask_tail(f(xb, p))
+                if prog_tok is not None:
+                    progress.stage_done(prog_tok, i, xb.device)
         out = basic.finalize_clip(xb)
         return out[0] if single else out
 

@@ -5,15 +5,16 @@ before/after loudness and the validation stats of every track.
 Mirrors ``_run_mastering_job_v2`` (routers/mastering.py:443-637): PRE =
 [rumble_filter] [spectral_denoise] [de-esser]; POST = [transient_designer]
 [parallel_compression] [dynamic_eq] [true_peak_limiter]; then the 6 ms
-output fade-in.  Vocal isolation is not a stage of the graph: the JAX
-engine runs the separator on the decoded track before the graph and
-drops ``apply_vocal_isolation`` from the pro dict
-(amw_tpu/runtime/engine.py), so asking the graph for it raises
-``NotImplementedError`` telling the caller to run
-``amw_tpu_torch.models.vocal.isolate_vocal`` first, until the engine is
-ported.  The JAX graph's progress token (host callbacks per stage) has no
-counterpart here (ROADMAP.md, 'Modules to port':
-amw_tpu/runtime/progress.py).
+output fade-in.  Vocal isolation is not a stage of the graph: the engine
+(``amw_tpu_torch/runtime/engine.py``, as ``amw_tpu/runtime/engine.py``)
+runs the separator on the decoded track before the graph and drops
+``apply_vocal_isolation`` from the pro dict, so asking the graph for it
+raises ``NotImplementedError`` telling the caller to go through the
+engine.  Given a job's token (``prog_tok``), the graph reports each
+finished stage to ``runtime/progress.py``, as the JAX graph's host
+callbacks do; the JAX builder's ``stage_ticks`` switch, which compiles
+those callbacks in, has no counterpart: one graph serves jobs with and
+without a token.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..ops.dynamics import (build_deesser, build_dynamic_eq,
 from ..ops.eq import build_rumble_filter
 from ..ops.spectral import build_spectral_denoise
 from ..ops.tplimit import build_true_peak_limiter
+from ..runtime import progress
 from ..spec import GraphSpec
 from .chain import as_batch, build_chain_ops, default_chain_config
 
@@ -50,21 +52,22 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
                        style: str = "standard", *, device=None):
     """Returns ``(params, fn, stage_names)``.  ``params`` is the JAX
     package's nesting (stage params, then ``[[Hk]]``) as tensors on
-    ``device`` (default ``cuda``); ``fn(x, params, n_valid=None)`` masters
-    ``x`` [C, N] or a bucket-padded batch [B, C, N] (``n_valid`` [B]) and
-    returns ``dict(out, before_lufs, after_lufs, peak, finite)``: the
-    output like ``x`` and, per track, the loudness before and after, the
-    peak and whether every sample is finite ([B], or scalars for one
-    [C, N] track)."""
+    ``device`` (default ``cuda``); ``fn(x, params, n_valid=None,
+    prog_tok=None)`` masters ``x`` [C, N] or a bucket-padded batch
+    [B, C, N] (``n_valid`` [B]) and returns ``dict(out, before_lufs,
+    after_lufs, peak, finite)``: the output like ``x`` and, per track, the
+    loudness before and after, the peak and whether every sample is finite
+    ([B], or scalars for one [C, N] track).  With ``prog_tok`` (a token of
+    ``progress.register``) each finished stage is reported to
+    ``runtime.progress.stage_done``."""
     dev = resolve_device(device)
     pro = pro or {}
     if pro.get("apply_vocal_isolation"):
         raise NotImplementedError(
-            "apply_vocal_isolation is applied before the graph by the engine "
-            "(amw_tpu/runtime/engine.py), which is not ported to "
-            "amw_tpu_torch yet (ROADMAP.md, 'Modules to port'): run "
-            "amw_tpu_torch.models.vocal.isolate_vocal on the track first and "
-            "drop the flag")
+            "apply_vocal_isolation is not a stage of the v2 graph: the "
+            "engine separates the vocals before the graph and drops the "
+            "flag, as amw_tpu/runtime/engine.py does; go through "
+            "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes")
     stages = []
 
     def add(name, built):
@@ -132,15 +135,17 @@ def build_v2_job_graph(spec: GraphSpec, chain_config: dict | None,
                               device=x.device)
         return meters.integrated_lufs(x, Hk_d, nfft, plan, n_valid=nv)
 
-    def fn(x, params, n_valid=None):
+    def fn(x, params, n_valid=None, prog_tok=None):
         xb, nv, single = as_batch(x, n_valid)
         Hk_d = params[-1][0]
         before = loudness(xb, Hk_d, nv)
         y = xb
         with validctx.valid_length(nv):
-            for f, p in zip(fns, params[:-1]):
+            for i, (f, p) in enumerate(zip(fns, params[:-1])):
                 # keep the bucket padding silent between stages
                 y = validctx.mask_tail(f(y, p))
+                if prog_tok is not None:
+                    progress.stage_done(prog_tok, i, y.device)
         after = loudness(y, Hk_d, nv)
         finite, peak = basic.validate_stats(y)
         res = {"out": y, "before_lufs": before, "after_lufs": after,

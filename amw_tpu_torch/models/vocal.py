@@ -98,6 +98,23 @@ def htdemucs_checkpoint_path() -> str | None:
     return os.environ.get("AMW_HTDEMUCS_CKPT") or None
 
 
+def _htdemucs_not_ported():
+    raise NotImplementedError(
+        "the htdemucs vocal separator is not ported to amw_tpu_torch yet "
+        "(ROADMAP.md, 'Modules to port': amw_tpu/models/htdemucs_jax.py);"
+        " unset AMW_HTDEMUCS_CKPT to run the DSP separator")
+
+
+def warmup_htdemucs(durations_sec) -> int:
+    """The engine's warmup of the neural separator: nothing to warm without
+    a configured checkpoint (returns 0, the number of buckets warmed, as
+    the JAX package's); with one it raises ``NotImplementedError``, as
+    :func:`isolate_vocal` does."""
+    if htdemucs_checkpoint_path():
+        _htdemucs_not_ported()
+    return 0
+
+
 def isolate_vocal(audio: np.ndarray, sr: int, model: str = "htdemucs", *,
                   device=None) -> np.ndarray:
     """Vocals of one track ``audio`` [C, N] (numpy), like it: the DSP
@@ -105,12 +122,22 @@ def isolate_vocal(audio: np.ndarray, sr: int, model: str = "htdemucs", *,
     ``auto`` asks for the network where a checkpoint is configured, which
     the port does not have yet: that raises ``NotImplementedError``."""
     if model in ("htdemucs", "auto") and htdemucs_checkpoint_path():
-        raise NotImplementedError(
-            "the htdemucs vocal separator is not ported to amw_tpu_torch yet "
-            "(ROADMAP.md, 'Modules to port': amw_tpu/models/htdemucs_jax.py);"
-            " unset AMW_HTDEMUCS_CKPT to run the DSP separator")
+        _htdemucs_not_ported()
     dev = resolve_device(device)
     params, fn = _built(sr, audio.shape[-1], audio.shape[0], dev)
     x = torch.as_tensor(np.ascontiguousarray(audio, np.float32), device=dev)
     with torch.no_grad():
         return fn(x, params).cpu().numpy()
+
+
+def isolate_vocal_bytes(audio_bytes: bytes, filename: str,
+                        model: str = "htdemucs", *, device=None) -> bytes:
+    """Bytes-level contract of the reference's ``isolate_vocal``: decode
+    (``utils/audio_io``), :func:`isolate_vocal` on ``device`` (default
+    ``cuda``), a float32 WAV of the vocals."""
+    from ..utils import wav
+    from ..utils.audio_io import load_audio_from_bytes
+
+    audio, sr = load_audio_from_bytes(audio_bytes, filename)
+    vocals = isolate_vocal(audio, sr, model=model, device=device)
+    return wav.write_wav_float32(vocals, sr)

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -56,6 +57,8 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 # The loaded libraries by source stem, filled once per process by build().
 _LIBS: dict[str, ctypes.CDLL] = {}
+# build() runs once even when the engine's threads launch at the same time
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -81,6 +84,11 @@ def _target(src: Path) -> Path:
 def build(verbose: bool = False) -> float:
     """Compile every missing library in parallel and load all of them.
     Returns the seconds spent (0 when everything was loaded already)."""
+    with _BUILD_LOCK:
+        return _build_locked(verbose)
+
+
+def _build_locked(verbose: bool) -> float:
     if _LIBS:
         return 0.0
     t0 = time.perf_counter()
@@ -125,7 +133,8 @@ def launch(name: str, *args) -> None:
     """Call C entry ``name`` on the current stream of the first tensor
     argument's device; tensors pass as ``data_ptr()``.  Raises on a
     non-zero ``cudaError_t``."""
-    build()
+    if not _LIBS:
+        build()
     stem, kinds = _ENTRIES[name]
     fn = getattr(_LIBS[stem], name)
     if len(args) != len(kinds):

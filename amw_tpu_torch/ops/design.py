@@ -147,23 +147,28 @@ def freqz(b, a, nfft: int) -> np.ndarray:
     Float64 evaluation on the host: ``H[k] = B(e^{-jw_k}) / A(e^{-jw_k})``
     with ``w_k = 2πk/nfft``, ``k = 0..nfft//2``.
     """
-    b = np.atleast_1d(np.asarray(b, np.float64))
-    a = np.atleast_1d(np.asarray(a, np.float64))
     zinv = _rfft_zinv(nfft)
-    num = np.zeros_like(zinv)
-    for coef in b[::-1]:
-        num = num * zinv + coef
-    den = np.zeros_like(zinv)
-    for coef in a[::-1]:
-        den = den * zinv + coef
-    return num / den
+
+    def horner(c):
+        # in place: at 2^23 points each temporary costs more than its
+        # arithmetic; the same operations in the same order
+        c = np.atleast_1d(np.asarray(c, np.float64))
+        acc = np.full_like(zinv, c[-1])
+        for coef in c[-2::-1]:
+            acc *= zinv
+            acc += coef
+        return acc
+
+    num = horner(b)
+    num /= horner(a)
+    return num
 
 
 def cascade_response(ba_pairs, nfft: int) -> np.ndarray:
     """Product of the responses of a list of (b, a) pairs (complex128)."""
     H = np.ones(nfft // 2 + 1, dtype=np.complex128)
     for b, a in ba_pairs:
-        H = H * freqz(b, a, nfft)
+        H *= freqz(b, a, nfft)
     return H
 
 

@@ -256,13 +256,14 @@ def build_reference_match(spec: GraphSpec, ref_env: np.ndarray,
     windowed zero-phase FIR, one 'same' convolution on ``torch.fft`` (at
     the JAX package's ``next_fft_size(n + n_fft)`` for the backend).
     ``ref_env``: the reference track's :func:`spectral_envelope`
-    ([n_fft // 2 + 1], host)."""
+    ([n_fft // 2 + 1], an array or a tensor on ``device``)."""
     strength = float(np.clip(strength, 0.0, 1.0))
     if strength < 0.01:
         return [], lambda x, params: x
     hann = np.hanning(n_fft).astype(np.float32)
     conv_nfft = fft_staged.site_plan(spec.n + n_fft, device)[0]
-    params = [np.asarray(ref_env, np.float32), hann]
+    params = [ref_env if isinstance(ref_env, torch.Tensor)
+              else np.asarray(ref_env, np.float32), hann]
 
     def fn(x, params):
         ref_e, win = params

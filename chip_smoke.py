@@ -102,11 +102,34 @@ Phases, each printing JSON lines:
              where it engages; ``vocal_180s``, the DSP vocal separator
              (``isolate_vocal``) on a stereo and a mono 180 s track, one a
              call; each with launch counts and parity with the CPU path;
-9. a ``kernels`` line: each kernel's launches on the path that uses it
+9. engine  — the serving engine (``runtime/engine.MasteringEngine()`` on
+             the card, micro-batch on): ``warmup((180,))`` (the default
+             graph cached and run once), one warm request of each kind,
+             then a burst of 10 concurrent requests as 16-bit WAV uploads
+             (8 stereo 180 s with ``V2_PRO``, two of them 170 s and 165 s;
+             one mono 180 s at ``podcast``; one 2 s clip at ``edm``: the
+             v2 180 s, mono and clip runs as requests) three times: burst
+             1 at a 1 s batch window, checked (launches equal to
+             ``job_expected``'s for the three runs, one batch of 8 for the
+             stereo key, each response int16 at its own length and within
+             2.5 LSB and 0.01 LU of the graphs that ``build_v2_job_graph``
+             built for the v2 180 s, mono and clip runs, called directly);
+             burst 2 at 1 s profiled (device busy, idle share; device
+             memory equal to burst 1's); burst 3 at the engine's default
+             50 ms window, profiled (the batches it formed, its idle
+             share).  Each burst's wall, realtime factor and per-request
+             split (decode, queue, stack, H2D, graph, export, D2H,
+             encode).  Then once each against the op on the card: stage
+             ticks without the batcher, on the burst's stereo graph (>= 8
+             labels, monotonic, each tick after its stage's CUDA event
+             completed), ``master_v1_bytes``, ``reference_match_bytes``,
+             ``upscale_bytes`` (44.1 -> 48 kHz), ``isolate_vocal_bytes``;
+10. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
 
+Every phase line carries ``t_s``, the seconds since the script's imports.
 Any failure raises (non-zero exit).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
@@ -119,8 +142,10 @@ import functools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -136,7 +161,7 @@ from amw_tpu_torch.models import (analyze, build_v1_pipeline,
 from amw_tpu_torch.convert import to_device
 from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.models.v2_job import resolve_denoise
-from amw_tpu_torch.models.vocal import isolate_vocal
+from amw_tpu_torch.models.vocal import isolate_vocal, isolate_vocal_bytes
 from amw_tpu_torch.ops import (_cuda, design, dither, fdfilter, meters, scan,
                                validctx)
 from amw_tpu_torch.ops import fft_staged as fs
@@ -147,7 +172,10 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         build_spectral_denoise,
                                         spectral_envelope)
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
+from amw_tpu_torch.runtime import progress
+from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.scripts.ab_bccb import kernel_ms
+from amw_tpu_torch.utils import wav
 
 SR = 44100
 BATCH = 8
@@ -215,7 +243,12 @@ COUNTERS = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1260,7 +1293,7 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
              channels: int, style: str, cpu_tracks, reps: int = 5,
              options: bool = False, pro: dict = V2_PRO,
              config: dict | None = None, exciter_os: int = 0,
-             tp_ceiling_db: float | None = None):
+             tp_ceiling_db: float | None = None, keep: dict | None = None):
     """Master ``batch`` tracks of ``dur`` s through the v2 job (default
     chain config at ``style`` and its target loudness, the pro set ``pro``;
     with ``options`` the config of :func:`options_config`, else ``config``
@@ -1269,7 +1302,8 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
     ``cpu_tracks`` with the port's CPU path, the steady-state realtime
     factor; with ``tp_ceiling_db`` also every output's true peak
     (``meters.true_peak_dbfs`` per track on the card) against that ceiling.
-    Returns the launch counts, a steady-state step, its wall time, the
+    ``keep``: where given, ``keep[label]`` is set to the graph's ``(spec,
+    params, fn)``.  Returns the launch counts, a steady-state step, its wall time, the
     stage names and the output (host)."""
     n = int(SR * dur)
     config = options_config() if options else config
@@ -1379,6 +1413,8 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
           "max_meter_delta_vs_cpu": d_meter, "cpu_plain_s": cpu_s,
           "true_peak_dbtp": tp_db, "wall_s_per_batch": wall,
           "realtime_factor": batch * dur / wall})
+    if keep is not None:
+        keep[label] = (spec, params, fn)
     return launches, (lambda: fn(x_d, params, nv_d)), wall, names, y
 
 
@@ -1726,6 +1762,23 @@ def phase_vocal(dev, reps: int = 3) -> None:
           "tracks": out})
 
 
+def device_rows(prof, reps: int) -> list:
+    """(name, device ms per rep, calls per rep) of every device-side event
+    of a torch.profiler run, costliest first."""
+    rows = []
+    for evt in prof.key_averages():
+        # device-side events only (kernels, memcpy, memset): the CPU ops
+        # that launched them carry the same time again
+        if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        rows.append((evt.key, dev_us / 1e3 / reps, evt.count / reps))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def phase_profile(step, wall_ms: float, label: str, reps: int = 3):
     """Device time by CUDA kernel over ``reps`` steady-state batches
     (torch.profiler, CUPTI), and the device's idle share of the
@@ -1738,17 +1791,7 @@ def phase_profile(step, wall_ms: float, label: str, reps: int = 3):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        # device-side events only (kernels, memcpy, memset): the CPU ops
-        # that launched them carry the same time again
-        if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        rows.append((evt.key, dev_us / 1e3 / reps, evt.count / reps))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, reps)
     busy = sum(r[1] for r in rows)
     emit({"phase": "profile", "run": label, "wall_ms_per_batch": wall_ms,
           "device_ms_per_batch": busy if rows else None,
@@ -1782,6 +1825,420 @@ def phase_stages(dev, label: str, stages: dict, seed0: int,
           "stages": out})
 
 
+# ---- the serving engine (the port's request path) -------------------------
+
+# The burst of the engine phase (the v2 runs as requests): 8 stereo 180 s
+# requests with the pro set (two shorter, padded inside the 180 s bucket),
+# one mono 180 s request at podcast, one 2 s clip at edm.
+ENGINE_STEREO_S = (180.0,) * 6 + (170.0, 165.0)
+ENGINE_RUNS = (("stereo", LONG[0], 2, "standard"),
+               ("mono", LONG[0], 1, "podcast"),
+               ("clip", SHORT_CLIP_S, 2, "edm"))
+# the earlier phase whose graph (built by build_v2_job_graph, kept) each
+# kind of request is checked against
+ENGINE_GRAPHS = {"stereo": "v2_180s", "mono": "v2_mono_180s",
+                 "clip": "v2_clip_2s"}
+ENGINE_SEED = 40
+# The window of the checked bursts: ten uploads decoded at once on the
+# host spread their submissions over more than the default 50 ms, which
+# splits the 8-track batch (PERF.md §5).  The numbers of these bursts are
+# the smoke's window, not the engine's; the third burst runs at the
+# engine's default and reports the batches it formed and its own idle
+# share.
+ENGINE_WINDOW_S = 1.0
+WAV16_LSB = 2.5  # the engine's dithered int16 against the graph, in LSB
+
+
+class RecordingEngine(MasteringEngine):
+    """The engine, recording each micro-batch's key and ``last_batch_info``
+    (the batcher runs one batch at a time)."""
+
+    def __init__(self, *args, **kwargs):
+        self.batches = []
+        super().__init__(*args, **kwargs)
+
+    def _run_v2_batch(self, bkey, xb, nvb):
+        items = super()._run_v2_batch(bkey, xb, nvb)
+        self.batches.append((bkey, dict(self.last_batch_info)))
+        return items
+
+
+def wav16(x: np.ndarray) -> bytes:
+    return wav.write_wav_int16(np.round(x * 32767).astype(np.int16), SR)
+
+
+def decode_int16(blob: bytes, sr: int = SR) -> np.ndarray:
+    """A 16-bit PCM WAV's samples as int16 [C, N] (header checked)."""
+    tag, channels, rate, _, _, bits = struct.unpack_from("<HHIIHH", blob, 20)
+    check(blob[:4] == b"RIFF" and blob[36:40] == b"data" and tag == 1
+          and bits == 16 and rate == sr, "engine: response is not int16 WAV")
+    return np.frombuffer(blob, "<i2", offset=44).reshape(-1, channels).T
+
+
+def engine_requests() -> list:
+    """The burst's requests: label, upload bytes, length, channels, style,
+    and the ``master_v2_bytes`` keywords."""
+    runs = [("stereo", d, 2, "standard") for d in ENGINE_STEREO_S] + [
+        ENGINE_RUNS[1], ENGINE_RUNS[2]]
+    reqs = []
+    for i, (kind, dur, channels, style) in enumerate(runs):
+        x = make_track(SR, dur, seed=ENGINE_SEED + i)[:channels]
+        reqs.append({"label": f"{kind}_{dur:g}s_{i}", "kind": kind,
+                     "data": wav16(x), "n": x.shape[-1],
+                     "channels": channels, "style": style,
+                     "kw": {"target_lufs": STYLE_CONFIGS[style]["lufs"],
+                            "style": style, "pro": dict(V2_PRO)}})
+    return reqs
+
+
+def run_burst(eng, reqs) -> tuple[list, float]:
+    """Every request in its own thread, released together: per request
+    (response, wall from submit to bytes, the engine's split); the
+    burst's wall.  Raises the first request's error."""
+    barrier = threading.Barrier(len(reqs) + 1)
+    out = [None] * len(reqs)
+    errors = []
+
+    def work(i):
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            res = eng.master_v2_bytes(reqs[i]["data"], "t.wav",
+                                      **reqs[i]["kw"])
+            out[i] = (res, time.perf_counter() - t0, eng.last_timings())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "engine: burst hung")
+    if errors:
+        raise errors[0]
+    return out, wall
+
+
+def request_key(style: str) -> str:
+    """The graph key ``master_v2_bytes`` makes for a burst request."""
+    return json.dumps({"cfg": None, "pro": dict(V2_PRO), "style": style,
+                       "t": round(float(STYLE_CONFIGS[style]["lufs"]), 2)},
+                      sort_keys=True, default=str)
+
+
+def lsb_err(blob: bytes, y: torch.Tensor, sr: int = SR) -> float:
+    """Max |response - y quantized without dither| in LSB."""
+    q = decode_int16(blob, sr).astype(np.int32)
+    with torch.inference_mode():
+        ref = dither.quantize16(y, torch.zeros_like(y)).cpu().numpy()
+    check(q.shape == ref.shape, f"engine: shape {q.shape} vs {ref.shape}")
+    return float(np.max(np.abs(q - ref)))
+
+
+def check_against_graph(eng, reqs, out, dev, graphs) -> dict:
+    """Each response within ``WAV16_LSB`` of its track through the graph
+    that ``build_v2_job_graph`` built for its run (``graphs``, kept by
+    :func:`phase_v2`; not the engine's cache), called directly on the
+    bucket-padded decoded upload (the same batch for the stereo requests);
+    its ``after_lufs`` within ``METER_LU`` of the graph's.  Returns the
+    largest deltas by kind."""
+    worst = {}
+    for kind, label in ENGINE_GRAPHS.items():
+        idx = [i for i, r in enumerate(reqs) if r["kind"] == kind]
+        r0 = reqs[idx[0]]
+        spec, params, fn = graphs[label]
+        espec = eng._spec_for(SR, r0["n"], r0["channels"])
+        check(espec == spec, f"engine {kind}: bucket {espec} is not the "
+              f"{label} graph's {spec}")
+        xb = np.stack([eng._pad(wav.read_wav(reqs[i]["data"])[0], spec.n)
+                       for i in idx])
+        nv = np.asarray([reqs[i]["n"] for i in idx], np.int32)
+        with torch.inference_mode():
+            res = fn(torch.from_numpy(xb).to(dev), params,
+                     torch.from_numpy(nv).to(dev))
+            errs, dlu = [], []
+            for j, i in enumerate(idx):
+                resp = out[i][0]
+                errs.append(lsb_err(resp["bytes"],
+                                    res["out"][j, :, :reqs[i]["n"]]))
+                dlu.append(abs(resp["after_lufs"]
+                               - float(res["after_lufs"][j])))
+        check(max(errs) <= WAV16_LSB, f"engine {kind}: {errs} LSB from "
+              "the graph")
+        check(max(dlu) <= METER_LU, f"engine {kind}: after_lufs {dlu} LU "
+              "from the graph")
+        worst[kind] = {"max_lsb": max(errs), "max_after_lu": max(dlu)}
+        del res
+    return worst
+
+
+def burst_summary(reqs, out, wall: float) -> dict:
+    audio_s = sum(r["n"] / SR for r in reqs)
+    return {"wall_s": wall, "audio_s": audio_s,
+            "realtime_factor": audio_s / wall,
+            "requests": [{"label": r["label"], "wall_s": o[1], "split": o[2]}
+                         for r, o in zip(reqs, out)]}
+
+
+def profiled_burst(eng, reqs) -> tuple[list, float, dict]:
+    """:func:`run_burst` under torch.profiler: its responses, wall, and
+    the device's busy time and idle share over that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, wall = run_burst(eng, reqs)
+        torch.cuda.synchronize()
+    rows = device_rows(prof, 1)
+    check(rows, "engine: the profiler saw no device event")
+    busy = sum(ms for _, ms, _ in rows)
+    return out, wall, {"wall_s": wall, "device_busy_ms": busy,
+                       "device_idle_share": 1.0 - busy / (wall * 1e3),
+                       "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                               for k, ms, c in rows[:10]]}
+
+
+def phase_engine(dev, graphs: dict) -> dict:
+    """The serving engine (``runtime/engine.MasteringEngine``) on the card.
+    Warmup (the default graph cached and run once through the batcher
+    path), one warm request of each kind (their graphs built), then the
+    burst three times: burst 1 checked (launches, one batch of 8 for the
+    stereo key, every response against the graphs the v2 runs built,
+    ``graphs``), burst 2 under torch.profiler (device busy and idle share;
+    memory equal to burst 1's), burst 3 at the default 50 ms window, under
+    torch.profiler (the batches it formed, its idle share).  Then the
+    other entry points once each against the op on the card: stage ticks
+    without the batcher, ``master_v1_bytes``, ``reference_match_bytes``,
+    ``upscale_bytes`` (44.1 -> 48 kHz), ``isolate_vocal_bytes``."""
+    t_phase = time.perf_counter()
+    reqs = engine_requests()
+    eng = RecordingEngine()
+    try:
+        check(eng.device == dev and eng._batcher is not None
+              and eng._batcher.window == 0.05, "engine: not the default")
+        t0 = time.perf_counter()
+        eng.warmup((LONG[0],))
+        warmup_s = time.perf_counter() - t0
+        default_key = json.dumps(
+            {"cfg": None, "pro": {}, "style": "standard",
+             "t": round(TARGET_LUFS, 2)}, sort_keys=True, default=str)
+        spec = GraphSpec(sr=SR, n=int(SR * LONG[0]), channels=2,
+                         exact=eng.exact)
+        check(list(eng._cache) == [("v2", spec, default_key)],
+              f"engine: warmup cached {list(eng._cache)}")
+        check(len(eng.batches) == 1 and eng.batches[0][1]["batch"] == 1,
+              f"engine: warmup did not run its graph: {eng.batches}")
+
+        first = {}
+        for kind, dur, channels, style in ENGINE_RUNS:
+            r = next(q for q in reqs if q["kind"] == kind)
+            t0 = time.perf_counter()
+            eng.master_v2_bytes(r["data"], "t.wav", **r["kw"])
+            first[kind] = {"first_request_s": time.perf_counter() - t0,
+                           "split": eng.last_timings()}
+
+        eng._batcher.window = ENGINE_WINDOW_S
+        expect = {name: 0 for name in COUNTERS}
+        for kind, dur, channels, style in ENGINE_RUNS:
+            rows = (BATCH if kind == "stereo" else 1) * channels
+            for k, v in job_expected(int(SR * dur), rows, style).items():
+                expect[k] += v
+        eng.batches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out1, wall1 = run_burst(eng, reqs)
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mem1 = torch.cuda.memory_allocated()
+        check(launches == expect, f"engine: launches {launches}, expected "
+              f"{expect}")
+        sizes = {}
+        for (_, spec, _), info in eng.batches:
+            sizes.setdefault((spec.n, spec.channels), []).append(
+                info["batch"])
+        check(sizes == {(int(SR * LONG[0]), 2): [BATCH],
+                        (int(SR * LONG[0]), 1): [1],
+                        (int(SR * SHORT_CLIP_S), 2): [1]},
+              f"engine: batches by key {sizes}")
+        for r, o in zip(reqs, out1):
+            q = decode_int16(o[0]["bytes"])
+            check(q.shape == (r["channels"], r["n"]),
+                  f"engine: {r['label']} came back {q.shape}")
+        graph_deltas = check_against_graph(eng, reqs, out1, dev, graphs)
+
+        out2, wall2, prof2 = profiled_burst(eng, reqs)
+        mem2 = torch.cuda.memory_allocated()
+        check(mem2 == mem1, f"engine: memory {mem2} after the second "
+              f"burst, {mem1} after the first")
+
+        eng._batcher.window = 0.05
+        eng.batches.clear()
+        out3, wall3, prof3 = profiled_burst(eng, reqs)
+        default_sizes = [info["batch"] for (_, spec, _), info in eng.batches
+                         if (spec.n, spec.channels)
+                         == (int(SR * LONG[0]), 2)]
+        check(sum(default_sizes) == BATCH, f"engine: {default_sizes}")
+        mem3 = torch.cuda.memory_allocated()
+        emit({"phase": "engine", "run": "burst",
+              "requests": len(reqs), "window_s": ENGINE_WINDOW_S,
+              "warmup_s": warmup_s, "first_request": first,
+              "launches": launches, "expected_launches": expect,
+              "batches_by_key": {f"{n}x{c}": b for (n, c), b in
+                                 sizes.items()},
+              "against_graph": graph_deltas, "peak_device_gb": peak_gb,
+              "memory_allocated": [mem1, mem2, mem3],
+              "burst1": burst_summary(reqs, out1, wall1),
+              "burst2_profiled": {
+                  **prof2, "device_idle_share_vs_burst1": 1.0 - prof2[
+                      "device_busy_ms"] / (wall1 * 1e3)},
+              "burst3_default_window": {
+                  "window_s": 0.05, "stereo_batches": default_sizes,
+                  **burst_summary(reqs, out3, wall3),
+                  "profiled": {k: v for k, v in prof3.items()
+                               if k != "wall_s"}}})
+        del out1, out2, out3
+        tools = engine_tools(dev, eng, reqs, graphs)
+    finally:
+        eng.close()
+    emit({"phase": "engine", "run": "entry_points", **tools,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def engine_tools(dev, eng, reqs, graphs) -> dict:
+    """The other entry points, one request each, against the op on the
+    card."""
+    out = {}
+    r = next(q for q in reqs
+             if q["kind"] == "stereo" and q["n"] == int(SR * LONG[0]))
+    x, _ = wav.read_wav(r["data"])
+
+    # stage ticks: no batcher; each tick after its stage's event completed
+    marks, late = {}, []
+    stage_done, emit_tick = progress.stage_done, progress.emit_stage_tick
+
+    def recorded_stage_done(tok, idx, device):
+        # recorded just before the stage's own event, at the same point of
+        # the stream: it has completed once that one has
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        marks[(int(tok), int(idx))] = ev
+        stage_done(tok, idx, device)
+
+    def checked_tick(tok, idx):
+        ev = marks.get((int(tok), int(idx)))
+        if ev is None or not ev.query():
+            late.append(int(idx))
+        emit_tick(tok, idx)
+
+    events = []
+    peng = MasteringEngine(micro_batch=False)
+    # handed the burst's stereo graph: an engine graph ticks when a job
+    # gives it a token, so one graph a key serves both engines
+    spec, params, fn = graphs[ENGINE_GRAPHS["stereo"]]
+    gkey = ("v2", spec, request_key(r["style"]))
+    check(gkey in eng._cache, f"engine: no cached graph {gkey}")
+    peng._cache[gkey] = eng._cache[gkey]
+    progress.stage_done, progress.emit_stage_tick = (recorded_stage_done,
+                                                     checked_tick)
+    try:
+        t0 = time.perf_counter()
+        res = peng.master_v2_bytes(r["data"], "t.wav", **r["kw"],
+                                   progress=lambda p, m: events.append(
+                                       (p, m)))
+        wall = time.perf_counter() - t0
+    finally:
+        progress.stage_done, progress.emit_stage_tick = stage_done, emit_tick
+    labels = [m for _, m in events if m.startswith("Mastering: ")]
+    pcts = [p for p, _ in events]
+    check(len(set(labels)) >= 8 and pcts == sorted(pcts) and not late
+          and len(marks) == len(labels),
+          f"engine progress: {len(set(labels))} labels, late {late}, "
+          f"{len(marks)} events, monotonic {pcts == sorted(pcts)}")
+    check(list(peng._cache) == [gkey], "engine progress: built "
+          f"{[k for k in peng._cache if k != gkey]}")
+    with torch.inference_mode():
+        ref = fn(torch.from_numpy(x[None]).to(dev), params,
+                 torch.tensor([r["n"]], dtype=torch.int32, device=dev))
+        err = lsb_err(res["bytes"], ref["out"][0])
+        dlu = abs(res["after_lufs"] - float(ref["after_lufs"][0]))
+    del ref, params, fn
+    peng.close()
+    del peng
+    check(err <= WAV16_LSB and dlu <= METER_LU,
+          f"engine progress: {err} LSB, {dlu} LU from the graph")
+    out["progress"] = {"labels": len(set(labels)), "ticks": len(labels),
+                       "late_ticks": late, "wall_s": wall, "max_lsb": err,
+                       "after_lu": dlu}
+
+    # master_v1_bytes on the same upload
+    t0 = time.perf_counter()
+    res = eng.master_v1_bytes(r["data"], "t.wav", target_lufs=TARGET_LUFS)
+    wall = time.perf_counter() - t0
+    (params, fn, _), = [v for k, v in eng._cache.items() if k[0] == "v1"]
+    with torch.inference_mode():
+        ref = fn(torch.from_numpy(x[None]).to(dev), params,
+                 torch.tensor([r["n"]], dtype=torch.int32, device=dev))
+        err = lsb_err(res["bytes"], ref["out"][0])
+        dlu = abs(res["after_lufs"] - float(ref["after_lufs"][0]))
+    del ref
+    check(err <= WAV16_LSB and dlu <= METER_LU,
+          f"engine v1: {err} LSB, {dlu} LU from the graph")
+    out["v1"] = {"wall_s": wall, "max_lsb": err, "after_lu": dlu}
+
+    # reference_match_bytes against another 180 s track
+    ref_data = wav16(make_track(SR, LONG[0], seed=REFERENCE_SEED))
+    t0 = time.perf_counter()
+    res = eng.reference_match_bytes(r["data"], "s.wav", ref_data, "r.wav")
+    wall = time.perf_counter() - t0
+    with torch.inference_mode():
+        env = spectral_envelope(torch.from_numpy(
+            wav.read_wav(ref_data)[0]).to(dev))
+    spec = GraphSpec(sr=SR, n=r["n"], channels=2)
+    p_rm, f_rm = build_reference_match(spec, env, strength=0.8, device=dev)
+    with torch.inference_mode():
+        nv = torch.tensor([r["n"]], dtype=torch.int32, device=dev)
+        with validctx.valid_length(nv):
+            y = validctx.mask_tail(f_rm(torch.from_numpy(x[None]).to(dev),
+                                        to_device(p_rm, dev)))
+        err = lsb_err(res["bytes"], y[0])
+    del y
+    check(err <= WAV16_LSB, f"engine reference match: {err} LSB")
+    out["reference_match"] = {"wall_s": wall, "max_lsb": err}
+
+    # upscale_bytes, 44.1 -> 48 kHz
+    t0 = time.perf_counter()
+    res = eng.upscale_bytes(r["data"], "t.wav", target_sr=EXPORT_SR)
+    wall = time.perf_counter() - t0
+    n_out = int(round(r["n"] * EXPORT_SR / SR))
+    check(res["sr"] == EXPORT_SR, f"engine upscale: sr {res['sr']}")
+    with torch.inference_mode():
+        y = fdfilter.resample_fft(torch.from_numpy(x).to(dev), n_out)
+    err = lsb_err(res["bytes"], y, EXPORT_SR)
+    del y
+    check(err <= WAV16_LSB, f"engine upscale: {err} LSB")
+    out["upscale"] = {"wall_s": wall, "n_out": n_out, "max_lsb": err}
+
+    # isolate_vocal_bytes (float32 WAV)
+    t0 = time.perf_counter()
+    blob = isolate_vocal_bytes(r["data"], "t.wav")
+    wall = time.perf_counter() - t0
+    v, _ = wav.read_wav(blob)
+    want = isolate_vocal(x, SR, device=dev)
+    err = float(np.max(np.abs(v - want)))
+    err_db = 20 * np.log10(max(err, 1e-30))
+    check(v.shape == want.shape and err_db <= PARITY_DBFS,
+          f"engine vocal bytes: {v.shape} {err_db} dBFS")
+    out["isolate_vocal"] = {"wall_s": wall, "max_err_dbfs": err_db}
+    return out
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -1812,14 +2269,18 @@ def main() -> None:
 
     # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip, and one
     # 180 s track with the chain-config options of slice 4
+    graphs = {}  # the v2 graphs the engine's responses are held to
     v2, step, wall, _, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
-                                    "standard", cpu_tracks=(BATCH - 1,))
+                                    "standard", cpu_tracks=(BATCH - 1,),
+                                    keep=graphs)
     phase_profile(step, wall * 1e3, "v2_180s", reps=2)
     del step
     mono, _, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
-                                "podcast", cpu_tracks=(0,), reps=3)
+                                "podcast", cpu_tracks=(0,), reps=3,
+                                keep=graphs)
     clip, _, _, names, _ = phase_v2(dev, "v2_clip_2s", SHORT_CLIP_S, (), 1,
-                                    2, "edm", cpu_tracks=(0,), reps=10)
+                                    2, "edm", cpu_tracks=(0,), reps=10,
+                                    keep=graphs)
     check({"chain:exciter", "chain:imager"} <= set(names),
           f"2 s edm clip: no exciter or imager in {names}")
     phase_v2(dev, "v2_options_180s", LONG[0], (), 1, 2, "standard",
@@ -1885,6 +2346,8 @@ def main() -> None:
              cpu_tracks=(0,), reps=3, pro={}, config=options_finish_config(),
              exciter_os=4, tp_ceiling_db=OPTIONS_TP_CEILING_DB)
     phase_vocal(dev)
+    phase_engine(dev, graphs)
+    del graphs
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}

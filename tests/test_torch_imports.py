@@ -164,3 +164,53 @@ def test_finish_entry_points_default_to_cuda_and_raise_without_it(
         vocal.isolate_vocal(np.zeros((2, 4096), np.float32), 44100)
     with pytest.raises(RuntimeError, match="CUDA"):
         dither.dither_noise(torch.Generator(), (2, 100))
+
+
+def test_runtime_modules_are_checked():
+    """The no-JAX check above covers the serving runtime and the host
+    helpers under it."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("runtime/engine.py", "runtime/batcher.py",
+                "runtime/progress.py", "runtime/config.py",
+                "utils/wav.py", "utils/audio_io.py", "parallel/batch.py",
+                "native/__init__.py", "native/build.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+
+
+def test_runtime_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from amw_tpu_torch.models import vocal
+    from amw_tpu_torch.runtime import engine
+    from amw_tpu_torch.utils import wav
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(engine, "_default_engine", None)
+    monkeypatch.delenv("AMW_HTDEMUCS_CKPT", raising=False)
+    for micro_batch in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine.MasteringEngine(micro_batch=micro_batch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.get_engine()
+    data = wav.write_wav_float32(np.zeros((2, 4096), np.float32), 44100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocal.isolate_vocal_bytes(data, "t.wav")
+    assert engine.MasteringEngine(micro_batch=False,
+                                  device="cpu").device == torch.device("cpu")
+
+
+def test_native_codecs_build_from_the_port_sources():
+    """The port loads the libraries it builds from its own ``native/*.cpp``
+    into ``amw_tpu_torch/_build/``, none from ``amw_tpu/native``."""
+    from amw_tpu_torch import native
+
+    build_dir = ROOT / "amw_tpu_torch" / "_build"
+    for name, get in (("pcm", native.get_lib),
+                      ("flac", native.get_flac_lib)):
+        lib = get()
+        if lib is None:
+            pytest.skip("g++ cannot build the native codecs here")
+        path = Path(lib._name).resolve()
+        assert path.parent == build_dir and path.name.startswith(
+            f"lib{name}-"), path
+        assert path == native.build.target(name)
+        assert (ROOT / "amw_tpu_torch" / "native" / f"{name}.cpp").is_file()

@@ -1,12 +1,16 @@
-"""What the port raises for an ``amw_tpu`` module it does not have yet.
+"""What the port raises for an ``amw_tpu`` module it does not have yet,
+and where a graph leaves a job to the engine.
 
-Every such ``NotImplementedError`` names the JAX package's module file to
-port (``amw_tpu/...py``) instead of a queue number of ROADMAP.md, so a
-renumbering of the queue cannot leave it pointing at the wrong item.  Each
-raise is triggered here at a tiny size on the CPU, and every module file it
+Every such ``NotImplementedError`` names the JAX package's module file
+(``amw_tpu/...py``) instead of a queue number of ROADMAP.md, so a
+renumbering of the queue cannot leave it pointing at the wrong item; a
+raise for a module not ported points at ROADMAP.md, one for a job the
+engine does points at the port's entry point.  Each raise is triggered
+here at a tiny size on the CPU, and every module file and entry point it
 names must exist.
 """
 
+import importlib
 import os
 import re
 from pathlib import Path
@@ -17,7 +21,7 @@ import pytest
 
 from amw_tpu_torch import GraphSpec
 from amw_tpu_torch.models import build_v2_job_graph
-from amw_tpu_torch.models.vocal import isolate_vocal
+from amw_tpu_torch.models.vocal import isolate_vocal, warmup_htdemucs
 
 ROOT = Path(__file__).resolve().parent.parent
 SR = 44100
@@ -35,23 +39,51 @@ def _isolate_with_checkpoint():
         isolate_vocal(np.zeros((2, 4096), np.float32), SR, device="cpu")
 
 
+def _warmup_with_checkpoint():
+    """The engine's htdemucs warmup where a checkpoint is configured."""
+    with mock.patch.dict(os.environ, {"AMW_HTDEMUCS_CKPT": str(ROOT)}):
+        warmup_htdemucs((180.0,))
+
+
+ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
+# case -> (trigger, amw_tpu module files named, what the message points at)
 CASES = {
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
-                           ["amw_tpu/runtime/engine.py"]),
+                           ["amw_tpu/runtime/engine.py"], ENGINE_V2),
     "vocal_htdemucs_checkpoint": (_isolate_with_checkpoint,
-                                  ["amw_tpu/models/htdemucs_jax.py"]),
+                                  ["amw_tpu/models/htdemucs_jax.py"],
+                                  "ROADMAP.md"),
+    "warmup_htdemucs_checkpoint": (_warmup_with_checkpoint,
+                                   ["amw_tpu/models/htdemucs_jax.py"],
+                                   "ROADMAP.md"),
 }
+
+
+def _resolve(dotted: str):
+    """The object a dotted path names (module, then attributes)."""
+    parts = dotted.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+        except ModuleNotFoundError:
+            continue
+        for attr in parts[i:]:
+            obj = getattr(obj, attr)
+        return obj
+    raise ModuleNotFoundError(dotted)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_not_ported_message_names_an_existing_module(case):
-    build, modules = CASES[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as info:
+    build, modules, pointer = CASES[case]
+    with pytest.raises(NotImplementedError, match=re.escape(pointer)) as info:
         build()
     named = re.findall(r"amw_tpu/[\w/]+\.py", str(info.value))
     assert named == modules
     for path in named:
         assert (ROOT / path).is_file(), path
+    if pointer != "ROADMAP.md":
+        assert callable(_resolve(pointer)), pointer
 
 
 def test_v2_job_docstring_names_an_existing_runtime_module():
@@ -60,3 +92,13 @@ def test_v2_job_docstring_names_an_existing_runtime_module():
 
     named = re.findall(r"amw_tpu/[\w/]+\.py", v2_job.__doc__)
     assert named and all((ROOT / p).is_file() for p in named)
+
+
+def test_engine_docstring_names_the_unported_mesh_module():
+    """The engine serves on one GPU; its docstring names the JAX package's
+    sequence-parallel module that it leaves out."""
+    from amw_tpu_torch.runtime import engine
+
+    named = re.findall(r"amw_tpu/[\w/]+\.py", engine.__doc__)
+    assert "amw_tpu/parallel/timeshard.py" in named
+    assert all((ROOT / p).is_file() for p in named)
