@@ -21,6 +21,8 @@ from .spec import GraphSpec
 
 __all__ = ["GraphSpec", "resolve_device"]
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless given.

@@ -7,6 +7,15 @@ the JAX package's values so presets sound identical; the tests compare
 them.
 """
 
+# Platform loudness targets (integrated LUFS).
+PRESET_LUFS = {
+    "spotify": -14.0,
+    "youtube": -14.0,
+    "apple": -16.0,
+    "club": -9.0,
+    "broadcast": -24.0,
+}
+
 # Genre styles: target LUFS + 5-band EQ offsets (dB) + dynamics/exciter/imager knobs.
 STYLE_CONFIGS = {
     "standard":    {"lufs": -14.0, "sub":  0.0, "bass":  0.0, "mids":  0.0, "presence":  0.0, "air":  0.0, "comp_mult": 1.0,  "exciter_db": 0.0, "imager_width": 1.0,  "parallel_mix": 0.0},

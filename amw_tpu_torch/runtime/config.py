@@ -1,14 +1,13 @@
-"""Settings of the serving engine (the engine's part of
-``amw_tpu/runtime/config.py``).
+"""Settings of the serving engine and the HTTP service (the part of
+``amw_tpu/runtime/config.py`` that the port's runtime reads).
 
 The same field names and defaults as the JAX package's, read from the
 environment with the reference's ``MAGIC_MASTER_`` prefix or the ``AMW_``
-alias.  Only the fields the engine reads are here; the service's come with
-it (``engine_warmup_buckets`` among them: the service reads it, not the
-engine).  One difference: the JAX engine asks ``settings_store`` for
-``vocal_isolation_enabled`` (a database override first, this setting as
-the default); the port reads this setting alone until ``settings_store``
-is ported.
+alias, so that a deployment's environment means the same to both
+packages.  Only the fields the port's modules read are here; those of the
+modules not ported (accounts, admin, payments, the AI chat, the bots,
+mail, the public info routes) come with them.  ``settings_store`` layers
+the database's overrides over these defaults.
 """
 
 from __future__ import annotations
@@ -40,7 +39,44 @@ def _env(name: str, default):
 
 @dataclass
 class Settings:
+    # Upload limits (MB) per format and tier.
+    max_upload_mb_wav: int = 800
+    max_upload_mb_mp3: int = 300
+    max_upload_mb_flac: int = 500
+    tier_upload_mb_free: int = 100
+    tier_upload_mb_pro: int = 300
+    tier_upload_mb_studio: int = 800
+
+    # Admission control: the job semaphores' slots.
+    semaphore_priority: int = 2
+    semaphore_normal: int = 1
+
+    # Jobs store.
+    jobs_done_ttl_seconds: int = 3600
+    jobs_max_entries: int = 100
+
+    # Debug flags.
+    debug: bool = False
+    mastering_debug_skip_limits: bool = False
+
+    # Defaults.
+    default_target_lufs: float = -14.0
+    batch_max_files: int = 10
+
+    # Feature flags.
+    feature_batch_enabled: bool = True
+    maintenance_mode: bool = False
     vocal_isolation_enabled: bool = False
+
+    # Auth and rate limits.
+    jwt_secret: str = "change-me-in-production"
+    jwt_expire_minutes: int = 60 * 24 * 7
+    free_weekly_limit: int = 1
+    auth_rate_per_minute: int = 10
+    rate_limit_per_minute: int = 300
+    # Comma-separated reverse-proxy IPs allowed to set X-Real-IP /
+    # X-Forwarded-For; empty = trust loopback + RFC1918 only.
+    trusted_proxies: str = ""
 
     engine_exact_mode: bool = True
     # Coalesce concurrent same-graph jobs into one batch (see
@@ -53,6 +89,37 @@ class Settings:
     # (parallel/batch.DEFAULT_BUCKETS_SEC); longer uploads run at exact
     # length.
     engine_max_bucket_sec: float = 2520.0
+    # Build and run the default chain's graph for these buckets at service
+    # start (comma separated seconds; "" = off).
+    engine_warmup_buckets: str = ""
+    db_path: str = "amw_tpu.sqlite3"
+
+    # AI preset recommender: the LLM backend and keys (none: the rule
+    # engine answers).
+    ai_backend: str = "openai"
+    openai_api_key: str = ""
+    anthropic_api_key: str = ""
+    deepseek_api_key: str = ""
+    deepseek_base_url: str = "https://api.deepseek.com"
+    deepseek_model: str = "deepseek-chat"
+    ai_prompt_recommend: str = ""
+
+    # Telegram: the admin notifier's bot and chat, the webhook secret.
+    telegram_bot_token: str = ""
+    telegram_admin_chat_id: str = ""
+    telegram_bot_webhook_secret: str = ""
+    public_base_url: str = ""
+    clarity_project_id: str = ""
+
+    # Monitoring alerts and anomaly thresholds.
+    alert_queue_threshold: int = 0
+    anomaly_check_interval: int = 60
+    anomaly_cpu_threshold: float = 85.0
+    anomaly_ram_threshold: float = 85.0
+    anomaly_disk_threshold: float = 85.0
+    anomaly_error_rate_threshold: float = 35.0
+    anomaly_rss_max_mb: int = 8192
+    anomaly_min_jobs_for_error_rate: int = 8
 
     def __post_init__(self):
         for f in fields(self):

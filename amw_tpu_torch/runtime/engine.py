@@ -52,6 +52,7 @@ from ..spec import GraphSpec
 from ..utils.audio_io import (add_seconds, export_audio,
                               load_audio_from_bytes)
 from . import progress as prog_mod
+from . import settings_store
 from .batcher import Batcher
 from .config import settings
 
@@ -249,7 +250,9 @@ class MasteringEngine:
             audio, sr = load_audio_from_bytes(data, filename or "wav")
             t0 = add_seconds(tm, "decode", t0)
             if (pro or {}).get("apply_vocal_isolation"):
-                if not settings.vocal_isolation_enabled:
+                if not settings_store.get_setting_bool(
+                        "vocal_isolation_enabled",
+                        settings.vocal_isolation_enabled):
                     raise RuntimeError(
                         "Vocal isolation is disabled on this server")
                 report(3, "Vocal isolation…")

@@ -124,7 +124,28 @@ Phases, each printing JSON lines:
              labels, monotonic, each tick after its stage's CUDA event
              completed), ``master_v1_bytes``, ``reference_match_bytes``,
              ``upscale_bytes`` (44.1 -> 48 kHz), ``isolate_vocal_bytes``;
-10. a ``kernels`` line: each kernel's launches on the path that uses it
+10. service — the HTTP service (``runtime/service.create_app``) on that
+             engine, its graphs warm, served on 127.0.0.1 over real
+             sockets (``web.AppRunner``, ``web.TCPSite``) with a
+             temporary database and the anonymous limits off, the client
+             ``aiohttp.ClientSession`` (``"http": true``): health,
+             version, metrics; ``/api/v2/batch`` of the 8 stereo uploads
+             at the defaults (the warm default graph; 8 jobs in turn
+             under the default semaphore of 1; one job on its SSE stream;
+             every result within 2.5 LSB and 0.01 LU of ``embed_branding``
+             of ``master_v2_bytes`` on the same bytes, its header, length
+             and branding equal; launches those of 8 single-track runs);
+             the engine burst's 10 requests as concurrent ``POST
+             /api/v2/master`` calls with the pro set, at the default
+             semaphore and at 8 slots, each under torch.profiler (wall,
+             realtime factor, device busy and idle share, the batches
+             formed, launches those of the batches, each stereo job's
+             upload and parse, semaphore wait, the engine's split, its
+             branding and download); then analysis and the LUFS tool
+             (against the calls on the card), reference match, upscale to
+             48 kHz, vocal isolation (the settings store's override on)
+             and auto mastering once each;
+11. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -137,19 +158,24 @@ Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import functools
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
+import aiohttp
 import numpy as np
 import torch
+from aiohttp import web
 
 from amw_tpu_torch import GraphSpec
 from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
@@ -172,10 +198,15 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         build_spectral_denoise,
                                         spectral_envelope)
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
-from amw_tpu_torch.runtime import progress
+from amw_tpu_torch.runtime import ai
+from amw_tpu_torch.runtime import db as service_db
+from amw_tpu_torch.runtime import jobs as service_jobs
+from amw_tpu_torch.runtime import progress, service, settings_store
+from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.scripts.ab_bccb import kernel_ms
 from amw_tpu_torch.utils import wav
+from amw_tpu_torch.utils.metadata import embed_branding
 
 SR = 44100
 BATCH = 8
@@ -1851,10 +1882,14 @@ WAV16_LSB = 2.5  # the engine's dithered int16 against the graph, in LSB
 
 class RecordingEngine(MasteringEngine):
     """The engine, recording each micro-batch's key and ``last_batch_info``
-    (the batcher runs one batch at a time)."""
+    (the batcher runs one batch at a time), and, while ``calls`` is a
+    dict, each ``master_v2_bytes`` call in the thread that makes it: its
+    upload, entry and exit times, ``last_timings()`` and its response
+    bytes (keyed by ``id(upload)``; the service phase's job timelines)."""
 
     def __init__(self, *args, **kwargs):
         self.batches = []
+        self.calls = None
         super().__init__(*args, **kwargs)
 
     def _run_v2_batch(self, bkey, xb, nvb):
@@ -1862,17 +1897,31 @@ class RecordingEngine(MasteringEngine):
         self.batches.append((bkey, dict(self.last_batch_info)))
         return items
 
+    def master_v2_bytes(self, data, *args, **kwargs):
+        if self.calls is None:
+            return super().master_v2_bytes(data, *args, **kwargs)
+        rec = {"data": data, "enter": time.perf_counter()}
+        self.calls[id(data)] = rec
+        res = super().master_v2_bytes(data, *args, **kwargs)
+        rec.update(exit=time.perf_counter(), split=self.last_timings(),
+                   out=res["bytes"])
+        return res
+
 
 def wav16(x: np.ndarray) -> bytes:
     return wav.write_wav_int16(np.round(x * 32767).astype(np.int16), SR)
 
 
 def decode_int16(blob: bytes, sr: int = SR) -> np.ndarray:
-    """A 16-bit PCM WAV's samples as int16 [C, N] (header checked)."""
+    """A 16-bit PCM WAV's samples as int16 [C, N] (header checked; chunks
+    after the data, the service's branding, left out)."""
     tag, channels, rate, _, _, bits = struct.unpack_from("<HHIIHH", blob, 20)
+    size = struct.unpack_from("<I", blob, 40)[0]
     check(blob[:4] == b"RIFF" and blob[36:40] == b"data" and tag == 1
-          and bits == 16 and rate == sr, "engine: response is not int16 WAV")
-    return np.frombuffer(blob, "<i2", offset=44).reshape(-1, channels).T
+          and bits == 16 and rate == sr and 44 + size <= len(blob),
+          "engine: response is not int16 WAV")
+    return np.frombuffer(blob, "<i2", count=size // 2,
+                         offset=44).reshape(-1, channels).T
 
 
 def engine_requests() -> list:
@@ -2003,7 +2052,7 @@ def profiled_burst(eng, reqs) -> tuple[list, float, dict]:
                                for k, ms, c in rows[:10]]}
 
 
-def phase_engine(dev, graphs: dict) -> dict:
+def phase_engine(dev, eng, graphs: dict) -> dict:
     """The serving engine (``runtime/engine.MasteringEngine``) on the card.
     Warmup (the default graph cached and run once through the batcher
     path), one warm request of each kind (their graphs built), then the
@@ -2014,98 +2063,96 @@ def phase_engine(dev, graphs: dict) -> dict:
     torch.profiler (the batches it formed, its idle share).  Then the
     other entry points once each against the op on the card: stage ticks
     without the batcher, ``master_v1_bytes``, ``reference_match_bytes``,
-    ``upscale_bytes`` (44.1 -> 48 kHz), ``isolate_vocal_bytes``."""
+    ``upscale_bytes`` (44.1 -> 48 kHz), ``isolate_vocal_bytes``.  ``eng``:
+    a new :class:`RecordingEngine`, left open and warm for the service
+    phase."""
     t_phase = time.perf_counter()
     reqs = engine_requests()
-    eng = RecordingEngine()
-    try:
-        check(eng.device == dev and eng._batcher is not None
-              and eng._batcher.window == 0.05, "engine: not the default")
+    check(eng.device == dev and eng._batcher is not None
+          and eng._batcher.window == 0.05, "engine: not the default")
+    t0 = time.perf_counter()
+    eng.warmup((LONG[0],))
+    warmup_s = time.perf_counter() - t0
+    default_key = json.dumps(
+        {"cfg": None, "pro": {}, "style": "standard",
+         "t": round(TARGET_LUFS, 2)}, sort_keys=True, default=str)
+    spec = GraphSpec(sr=SR, n=int(SR * LONG[0]), channels=2,
+                     exact=eng.exact)
+    check(list(eng._cache) == [("v2", spec, default_key)],
+          f"engine: warmup cached {list(eng._cache)}")
+    check(len(eng.batches) == 1 and eng.batches[0][1]["batch"] == 1,
+          f"engine: warmup did not run its graph: {eng.batches}")
+
+    first = {}
+    for kind, dur, channels, style in ENGINE_RUNS:
+        r = next(q for q in reqs if q["kind"] == kind)
         t0 = time.perf_counter()
-        eng.warmup((LONG[0],))
-        warmup_s = time.perf_counter() - t0
-        default_key = json.dumps(
-            {"cfg": None, "pro": {}, "style": "standard",
-             "t": round(TARGET_LUFS, 2)}, sort_keys=True, default=str)
-        spec = GraphSpec(sr=SR, n=int(SR * LONG[0]), channels=2,
-                         exact=eng.exact)
-        check(list(eng._cache) == [("v2", spec, default_key)],
-              f"engine: warmup cached {list(eng._cache)}")
-        check(len(eng.batches) == 1 and eng.batches[0][1]["batch"] == 1,
-              f"engine: warmup did not run its graph: {eng.batches}")
+        eng.master_v2_bytes(r["data"], "t.wav", **r["kw"])
+        first[kind] = {"first_request_s": time.perf_counter() - t0,
+                       "split": eng.last_timings()}
 
-        first = {}
-        for kind, dur, channels, style in ENGINE_RUNS:
-            r = next(q for q in reqs if q["kind"] == kind)
-            t0 = time.perf_counter()
-            eng.master_v2_bytes(r["data"], "t.wav", **r["kw"])
-            first[kind] = {"first_request_s": time.perf_counter() - t0,
-                           "split": eng.last_timings()}
+    eng._batcher.window = ENGINE_WINDOW_S
+    expect = {name: 0 for name in COUNTERS}
+    for kind, dur, channels, style in ENGINE_RUNS:
+        rows = (BATCH if kind == "stereo" else 1) * channels
+        for k, v in job_expected(int(SR * dur), rows, style).items():
+            expect[k] += v
+    eng.batches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out1, wall1 = run_burst(eng, reqs)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mem1 = torch.cuda.memory_allocated()
+    check(launches == expect, f"engine: launches {launches}, expected "
+          f"{expect}")
+    sizes = {}
+    for (_, spec, _), info in eng.batches:
+        sizes.setdefault((spec.n, spec.channels), []).append(
+            info["batch"])
+    check(sizes == {(int(SR * LONG[0]), 2): [BATCH],
+                    (int(SR * LONG[0]), 1): [1],
+                    (int(SR * SHORT_CLIP_S), 2): [1]},
+          f"engine: batches by key {sizes}")
+    for r, o in zip(reqs, out1):
+        q = decode_int16(o[0]["bytes"])
+        check(q.shape == (r["channels"], r["n"]),
+              f"engine: {r['label']} came back {q.shape}")
+    graph_deltas = check_against_graph(eng, reqs, out1, dev, graphs)
 
-        eng._batcher.window = ENGINE_WINDOW_S
-        expect = {name: 0 for name in COUNTERS}
-        for kind, dur, channels, style in ENGINE_RUNS:
-            rows = (BATCH if kind == "stereo" else 1) * channels
-            for k, v in job_expected(int(SR * dur), rows, style).items():
-                expect[k] += v
-        eng.batches.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        out1, wall1 = run_burst(eng, reqs)
-        launches = read_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        mem1 = torch.cuda.memory_allocated()
-        check(launches == expect, f"engine: launches {launches}, expected "
-              f"{expect}")
-        sizes = {}
-        for (_, spec, _), info in eng.batches:
-            sizes.setdefault((spec.n, spec.channels), []).append(
-                info["batch"])
-        check(sizes == {(int(SR * LONG[0]), 2): [BATCH],
-                        (int(SR * LONG[0]), 1): [1],
-                        (int(SR * SHORT_CLIP_S), 2): [1]},
-              f"engine: batches by key {sizes}")
-        for r, o in zip(reqs, out1):
-            q = decode_int16(o[0]["bytes"])
-            check(q.shape == (r["channels"], r["n"]),
-                  f"engine: {r['label']} came back {q.shape}")
-        graph_deltas = check_against_graph(eng, reqs, out1, dev, graphs)
+    out2, wall2, prof2 = profiled_burst(eng, reqs)
+    mem2 = torch.cuda.memory_allocated()
+    check(mem2 == mem1, f"engine: memory {mem2} after the second "
+          f"burst, {mem1} after the first")
 
-        out2, wall2, prof2 = profiled_burst(eng, reqs)
-        mem2 = torch.cuda.memory_allocated()
-        check(mem2 == mem1, f"engine: memory {mem2} after the second "
-              f"burst, {mem1} after the first")
-
-        eng._batcher.window = 0.05
-        eng.batches.clear()
-        out3, wall3, prof3 = profiled_burst(eng, reqs)
-        default_sizes = [info["batch"] for (_, spec, _), info in eng.batches
-                         if (spec.n, spec.channels)
-                         == (int(SR * LONG[0]), 2)]
-        check(sum(default_sizes) == BATCH, f"engine: {default_sizes}")
-        mem3 = torch.cuda.memory_allocated()
-        emit({"phase": "engine", "run": "burst",
-              "requests": len(reqs), "window_s": ENGINE_WINDOW_S,
-              "warmup_s": warmup_s, "first_request": first,
-              "launches": launches, "expected_launches": expect,
-              "batches_by_key": {f"{n}x{c}": b for (n, c), b in
-                                 sizes.items()},
-              "against_graph": graph_deltas, "peak_device_gb": peak_gb,
-              "memory_allocated": [mem1, mem2, mem3],
-              "burst1": burst_summary(reqs, out1, wall1),
-              "burst2_profiled": {
-                  **prof2, "device_idle_share_vs_burst1": 1.0 - prof2[
-                      "device_busy_ms"] / (wall1 * 1e3)},
-              "burst3_default_window": {
-                  "window_s": 0.05, "stereo_batches": default_sizes,
-                  **burst_summary(reqs, out3, wall3),
-                  "profiled": {k: v for k, v in prof3.items()
-                               if k != "wall_s"}}})
-        del out1, out2, out3
-        tools = engine_tools(dev, eng, reqs, graphs)
-    finally:
-        eng.close()
+    eng._batcher.window = 0.05
+    eng.batches.clear()
+    out3, wall3, prof3 = profiled_burst(eng, reqs)
+    default_sizes = [info["batch"] for (_, spec, _), info in eng.batches
+                     if (spec.n, spec.channels)
+                     == (int(SR * LONG[0]), 2)]
+    check(sum(default_sizes) == BATCH, f"engine: {default_sizes}")
+    mem3 = torch.cuda.memory_allocated()
+    emit({"phase": "engine", "run": "burst",
+          "requests": len(reqs), "window_s": ENGINE_WINDOW_S,
+          "warmup_s": warmup_s, "first_request": first,
+          "launches": launches, "expected_launches": expect,
+          "batches_by_key": {f"{n}x{c}": b for (n, c), b in
+                             sizes.items()},
+          "against_graph": graph_deltas, "peak_device_gb": peak_gb,
+          "memory_allocated": [mem1, mem2, mem3],
+          "burst1": burst_summary(reqs, out1, wall1),
+          "burst2_profiled": {
+              **prof2, "device_idle_share_vs_burst1": 1.0 - prof2[
+                  "device_busy_ms"] / (wall1 * 1e3)},
+          "burst3_default_window": {
+              "window_s": 0.05, "stereo_batches": default_sizes,
+              **burst_summary(reqs, out3, wall3),
+              "profiled": {k: v for k, v in prof3.items()
+                           if k != "wall_s"}}})
+    del out1, out2, out3
+    tools = engine_tools(dev, eng, reqs, graphs)
     emit({"phase": "engine", "run": "entry_points", **tools,
           "phase_s": time.perf_counter() - t_phase})
     return launches
@@ -2239,6 +2286,443 @@ def engine_tools(dev, eng, reqs, graphs) -> dict:
     return out
 
 
+# ---- the HTTP service (the port's mastering API on the engine) -------------
+
+# The 10-request burst again at this many normal-job semaphore slots (the
+# default is 1: jobs.select_semaphore runs anonymous jobs one at a time)
+SERVICE_WIDE_SLOTS = 8
+SERVICE_POLL_S = 0.05  # the client's status poll
+# the pro set as the service's form fields
+V2_PRO_FIELDS = {k: ("true" if v is True else str(v)) for k, v in
+                 V2_PRO.items()}
+
+
+@contextlib.contextmanager
+def served(app):
+    """``app`` served on 127.0.0.1 (an ephemeral port) by ``web.AppRunner``
+    and ``web.TCPSite`` on an event loop of its own thread; yields the base
+    URL and stops the loop, the runner and the thread on exit."""
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    ready = threading.Event()
+    box = {}
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(runner.setup())
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            loop.run_until_complete(site.start())
+            box["url"] = "http://127.0.0.1:%d" % runner.addresses[0][1]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+        ready.set()
+        if "url" in box:
+            loop.run_forever()
+        loop.run_until_complete(runner.cleanup())
+        loop.close()
+
+    th = threading.Thread(target=serve, name="service", daemon=True)
+    th.start()
+    ready.wait(120)
+    if "error" in box:
+        th.join(60)
+        raise box["error"]
+    check("url" in box, "service: the server did not start")
+    try:
+        yield box["url"]
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(120)
+        check(not th.is_alive(), "service: the server did not stop")
+
+
+def form(fields: dict) -> aiohttp.FormData:
+    """A multipart form: an upload is (name, bytes), a list of them sends
+    each under the field's name."""
+    f = aiohttp.FormData()
+    for k, v in fields.items():
+        for item in (v if isinstance(v, list) else [v]):
+            if isinstance(item, tuple):
+                f.add_field(k, item[1], filename=item[0],
+                            content_type="audio/wav")
+            else:
+                f.add_field(k, str(item))
+    return f
+
+
+async def http_json(session, method: str, url: str, **kw):
+    async with session.request(method, url, **kw) as r:
+        body = await r.read()
+        check(r.status == 200, f"service: {method} {url} answered "
+              f"{r.status}: {body[:300]!r}")
+        return json.loads(body)
+
+
+async def http_bytes(session, url: str, **kw) -> tuple[bytes, float]:
+    """A response's body (a POST where ``data`` is given) and its wall."""
+    t0 = time.perf_counter()
+    method = "POST" if "data" in kw else "GET"
+    async with session.request(method, url, **kw) as r:
+        body = await r.read()
+        check(r.status == 200, f"service: {url} answered {r.status}: "
+              f"{body[:300]!r}")
+    return body, time.perf_counter() - t0
+
+
+async def follow_sse(session, url: str) -> list:
+    """The events of a job's progress stream, to its end."""
+    events = []
+    async with session.get(url) as r:
+        check(r.status == 200 and r.headers["Content-Type"]
+              == "text/event-stream", f"service: SSE answered {r.status}")
+        async for line in r.content:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[6:]))
+                if events[-1]["status"] in ("done", "error"):
+                    break
+    return events
+
+
+async def wait_done(session, base: str, job_id: str) -> dict:
+    while True:
+        st = await http_json(session, "GET",
+                             f"{base}/api/master/status/{job_id}")
+        if st["status"] in ("done", "error"):
+            check(st["status"] == "done", f"service: job {job_id} {st}")
+            return st
+        await asyncio.sleep(SERVICE_POLL_S)
+
+
+def job_uploads(job_ids) -> dict:
+    """id() of each job's upload in the job store (the key of the engine's
+    record of its call), read while the jobs are held there."""
+    return {jid: id(service_jobs.get_job(jid)["original_bytes"])
+            for jid in job_ids}
+
+
+def timed_branding(eng):
+    """``embed_branding`` timing each call into the engine's record of the
+    call whose response it brands."""
+    def brand(data, fmt):
+        t0 = time.perf_counter()
+        out = embed_branding(data, fmt)
+        dt = time.perf_counter() - t0
+        for rec in (eng.calls or {}).values():
+            if rec.get("out") is data:
+                rec["branding_s"] = dt
+                del rec["out"]
+        return out
+    return brand
+
+
+def job_timeline(rec: dict, posted: float, download_s: float) -> dict:
+    """A job's split: the wait from its upload's answer to the engine's
+    start (the semaphore; the thread hand-off in it), the engine's call and
+    its split, branding, the result's download."""
+    return {"semaphore_wait_s": rec["enter"] - posted,
+            "engine_s": rec["exit"] - rec["enter"],
+            "engine_split": rec["split"],
+            "branding_s": rec.get("branding_s"),
+            "download_s": download_s}
+
+
+def batches_summary(eng) -> dict:
+    out = {}
+    for (_, spec, key), info in eng.batches:
+        style = json.loads(key)["style"]
+        out.setdefault(f"{spec.n}x{spec.channels}:{style}", []).append(
+            info["batch"])
+    return out
+
+
+def batches_expected(eng) -> dict:
+    """Each kernel's launches for the micro-batches the engine ran (the
+    compiled width, a power of two, times the channels are the rows)."""
+    expect = {name: 0 for name in COUNTERS}
+    for (_, spec, key), info in eng.batches:
+        cfg = json.loads(key)
+        for k, v in job_expected(spec.n, info["batch_compiled"]
+                                 * spec.channels, cfg["style"],
+                                 pro=cfg["pro"]).items():
+            expect[k] += v
+    return expect
+
+
+async def service_batch(session, base, eng, uploads) -> dict:
+    """``POST /api/v2/batch`` with the stereo uploads at the defaults:
+    one job followed on its SSE stream, the others polled, every result
+    fetched."""
+    eng.calls, eng.batches[:] = {}, []
+    reset_counts()
+    t0 = time.perf_counter()
+    resp = await http_json(session, "POST", f"{base}/api/v2/batch", data=form(
+        {"files": [(f"t{i}.wav", d) for i, d in enumerate(uploads)]}))
+    posted = time.perf_counter()
+    ids = resp["job_ids"]
+    check(len(ids) == len(uploads), f"service batch: {resp}")
+    keys = job_uploads(ids)
+    events, *status = await asyncio.gather(
+        follow_sse(session, f"{base}/api/master/progress/{ids[0]}"),
+        *[wait_done(session, base, jid) for jid in ids[1:]])
+    check(events[-1]["status"] == "done", f"service SSE: {events[-1]}")
+    pct = [e["progress"] for e in events]
+    check(pct == sorted(pct) and pct[-1] == 100, f"service SSE: {pct}")
+    status = [events[-1]] + status
+    blobs, timelines = [], []
+    for jid in ids:
+        blob, dl = await http_bytes(session,
+                                    f"{base}/api/master/result/{jid}")
+        blobs.append(blob)
+        timelines.append(job_timeline(eng.calls[keys[jid]], posted, dl))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    eng.calls = None
+    return {"ids": ids, "status": status, "blobs": blobs, "wall": wall,
+            "post_s": posted - t0, "sse_events": len(events),
+            "timelines": timelines, "launches": launches,
+            "batches": batches_summary(eng)}
+
+
+async def service_burst(session, base, eng, reqs) -> dict:
+    """The engine burst's requests as concurrent ``POST /api/v2/master``
+    calls with the pro set as form fields, each job polled and its result
+    fetched, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.calls, eng.batches[:] = {}, []
+    reset_counts()
+
+    async def one(r):
+        fields = {"file": ("t.wav", r["data"]), "style": r["style"],
+                  "target_lufs": r["kw"]["target_lufs"], **V2_PRO_FIELDS}
+        t0 = time.perf_counter()
+        resp = await http_json(session, "POST", f"{base}/api/v2/master",
+                               data=form(fields))
+        posted = time.perf_counter()
+        key = job_uploads([resp["job_id"]])[resp["job_id"]]
+        st = await wait_done(session, base, resp["job_id"])
+        blob, dl = await http_bytes(
+            session, f"{base}/api/master/result/{resp['job_id']}")
+        return {"upload_parse_s": posted - t0, "posted": posted,
+                "key": key, "status": st, "blob": blob, "download_s": dl}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*[one(r) for r in reqs])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    launches = read_counts()
+    expect = batches_expected(eng)
+    check(launches == expect, f"service burst: launches {launches}, "
+          f"expected {expect} for the batches {eng.batches}")
+    rows = device_rows(prof, 1)
+    check(rows, "service burst: the profiler saw no device event")
+    busy = sum(ms for _, ms, _ in rows)
+    for r, o in zip(reqs, out):
+        q = decode_int16(o["blob"])
+        check(q.shape == (r["channels"], r["n"]),
+              f"service burst: {r['label']} came back {q.shape}")
+    audio_s = sum(r["n"] / SR for r in reqs)
+    jobs_out = [{"label": r["label"], "upload_parse_s": o["upload_parse_s"],
+                 **job_timeline(eng.calls[o["key"]], o["posted"],
+                                o["download_s"])}
+                for r, o in zip(reqs, out) if r["kind"] == "stereo"]
+    eng.calls = None
+    return {"wall_s": wall, "audio_s": audio_s,
+            "realtime_factor": audio_s / wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "batches": batches_summary(eng), "launches": launches,
+            "stereo_jobs": jobs_out}
+
+
+async def service_tools(session, base, dev, eng, x, data) -> dict:
+    """The other routes once each on a 180 s stereo upload, against the
+    call they make, on the card."""
+    out = {}
+
+    async def post(route, fields):
+        t0 = time.perf_counter()
+        body = await http_json(session, "POST", f"{base}{route}",
+                               data=form(fields))
+        return body, time.perf_counter() - t0
+
+    got, wall = await post("/api/v2/analyze", {"file": ("t.wav", data),
+                                               "extended": "true"})
+    want = json.loads(json.dumps(analyze(x, SR, True, device=dev)))
+    same_dict(got, want, "service analyze")
+    out["analyze_s"] = wall
+    got, wall = await post("/api/tools/lufs-analyze",
+                           {"file": ("t.wav", data)})
+    same_dict(got, json.loads(json.dumps(lufs_analyze_tool(
+        x, SR, "wav", device=dev))), "service lufs tool")
+    out["lufs_analyze_s"] = wall
+
+    ref = wav16(make_track(SR, LONG[0], seed=REFERENCE_SEED))
+    blob, wall = await http_bytes(
+        session, f"{base}/api/v2/reference-match",
+        data=form({"file": ("s.wav", data), "reference": ("r.wav", ref)}))
+    want = eng.reference_match_bytes(data, "s.wav", ref, "r.wav")["bytes"]
+    err = float(np.max(np.abs(decode_int16(blob).astype(np.int32)
+                              - decode_int16(want))))
+    check(err <= WAV16_LSB, f"service reference match: {err} LSB")
+    out["reference_match"] = {"wall_s": wall, "max_lsb": err}
+
+    blob, wall = await http_bytes(
+        session, f"{base}/api/v2/upscale",
+        data=form({"file": ("t.wav", data), "target_sr": EXPORT_SR}))
+    want = eng.upscale_bytes(data, "t.wav", target_sr=EXPORT_SR)["bytes"]
+    q = decode_int16(blob, EXPORT_SR).astype(np.int32)
+    err = float(np.max(np.abs(q - decode_int16(want, EXPORT_SR))))
+    check(q.shape == (2, int(round(x.shape[-1] * EXPORT_SR / SR)))
+          and err <= WAV16_LSB, f"service upscale: {q.shape}, {err} LSB")
+    out["upscale"] = {"wall_s": wall, "max_lsb": err}
+
+    settings_store.set_setting("vocal_isolation_enabled", "true")
+    try:
+        blob, wall = await http_bytes(session, f"{base}/api/v2/isolate-vocal",
+                                      data=form({"file": ("t.wav", data)}))
+    finally:
+        settings_store.set_setting("vocal_isolation_enabled", None)
+    v, _ = wav.read_wav(blob)
+    want, _ = wav.read_wav(isolate_vocal_bytes(data, "t.wav", device=dev))
+    err_db = 20 * np.log10(max(float(np.max(np.abs(v - want))), 1e-30))
+    check(v.shape == want.shape and err_db <= PARITY_DBFS,
+          f"service vocal: {v.shape}, {err_db} dBFS")
+    out["isolate_vocal"] = {"wall_s": wall, "max_err_dbfs": err_db}
+
+    t0 = time.perf_counter()
+    resp, _ = await post("/api/v2/master/auto", {"file": ("t.wav", data)})
+    rec = ai.recommend_preset(analyze(x, SR, True, device=dev))
+    check(resp["style"] == rec["style"] and resp["target_lufs"]
+          == max(-24.0, min(-6.0, float(rec["target_lufs"]))),
+          f"service auto: {resp} against {rec}")
+    await wait_done(session, base, resp["job_id"])
+    blob, _ = await http_bytes(session,
+                               f"{base}/api/master/result/{resp['job_id']}")
+    check(decode_int16(blob).shape == x.shape, "service auto: result shape")
+    out["master_auto"] = {"wall_s": time.perf_counter() - t0,
+                          "style": resp["style"],
+                          "target_lufs": resp["target_lufs"]}
+    return out
+
+
+async def service_requests(base: str, dev, eng) -> dict:
+    reqs = engine_requests()
+    stereo = [r for r in reqs if r["kind"] == "stereo"]
+    timeout = aiohttp.ClientTimeout(total=900)
+    async with aiohttp.ClientSession(timeout=timeout) as session:
+        health = await http_json(session, "GET", f"{base}/api/health")
+        version = await http_json(session, "GET", f"{base}/api/version")
+        metrics = await http_json(session, "GET", f"{base}/api/metrics")
+        check(health["status"] == "ok" and health["db"] == "ok"
+              and version["engine"] == "amw_tpu_torch"
+              and metrics["mesh_devices"] == 1,
+              f"service: {health} {version} {metrics}")
+
+        # 1. the batch route at the defaults: the default graph, 8 jobs in
+        # turn under the default semaphore
+        batch = await service_batch(session, base, eng,
+                                    [r["data"] for r in stereo])
+        one = {name: 0 for name in COUNTERS}
+        for k, v in job_expected(int(SR * LONG[0]), 2, "standard",
+                                 pro={}).items():
+            one[k] = v * len(stereo)
+        check(batch["launches"] == one, f"service batch: launches "
+              f"{batch['launches']}, expected {one}")
+        check(all(b == 1 for bs in batch["batches"].values() for b in bs),
+              f"service batch: batches {batch['batches']}")
+        direct, _ = run_burst(eng, [{"data": r["data"], "kw": {
+            "target_lufs": TARGET_LUFS}} for r in stereo])
+        worst_lsb = worst_lu = 0.0
+        for r, blob, st, d in zip(stereo, batch["blobs"], batch["status"],
+                                  direct):
+            want = embed_branding(d[0]["bytes"], "wav")
+            q = decode_int16(blob)
+            check(q.shape == (2, r["n"]) and len(blob) == len(want)
+                  and blob[:44] == want[:44]
+                  and blob[44 + q.size * 2:] == want[44 + q.size * 2:],
+                  f"service batch: {r['label']} header, length or branding")
+            worst_lsb = max(worst_lsb, float(np.max(np.abs(
+                q.astype(np.int32) - decode_int16(want)))))
+            worst_lu = max(worst_lu, abs(st["after_lufs"]
+                                         - d[0]["after_lufs"]))
+        check(worst_lsb <= WAV16_LSB and worst_lu <= METER_LU,
+              f"service batch: {worst_lsb} LSB, {worst_lu} LU from "
+              "master_v2_bytes")
+        audio_s = sum(r["n"] / SR for r in stereo)
+        batch_line = {
+            "jobs": len(stereo), "wall_s": batch["wall"],
+            "post_s": batch["post_s"], "audio_s": audio_s,
+            "realtime_factor": audio_s / batch["wall"],
+            "batches": batch["batches"], "launches": batch["launches"],
+            "sse_events": batch["sse_events"], "max_lsb": worst_lsb,
+            "max_after_lu": worst_lu, "jobs_split": batch["timelines"]}
+        del batch, direct
+
+        # 2. the engine burst's requests, at the default semaphore and at
+        # SERVICE_WIDE_SLOTS (the semaphores are cached per loop: cleared)
+        bursts = {}
+        for slots in (runtime_settings.semaphore_normal, SERVICE_WIDE_SLOTS):
+            default = runtime_settings.semaphore_normal
+            runtime_settings.semaphore_normal = slots
+            service_jobs._sems.clear()
+            try:
+                bursts[f"semaphore_{slots}"] = await service_burst(
+                    session, base, eng, reqs)
+            finally:
+                runtime_settings.semaphore_normal = default
+                service_jobs._sems.clear()
+
+        # 3. the other routes once each
+        x, _ = wav.read_wav(stereo[0]["data"])
+        tools = await service_tools(session, base, dev, eng, x,
+                                    stereo[0]["data"])
+    return {"batch": batch_line, "bursts": bursts, "tools": tools}
+
+
+def phase_service(dev, eng) -> None:
+    """The HTTP service (``runtime/service.create_app``) on the engine of
+    the engine phase (its graphs warm), served over real sockets on
+    127.0.0.1 with a temporary database and the anonymous weekly limit
+    off (as tests/test_service.py runs it); the smoke, one client, also
+    lifts the per-IP request limit.  ``GET /api/health``, ``/api/version``,
+    ``/api/metrics``; ``POST /api/v2/batch`` of the 8 stereo uploads at the
+    defaults (one job on its SSE stream, the others polled, every result
+    within 2.5 LSB and 0.01 LU of ``embed_branding`` of
+    ``master_v2_bytes`` on the same bytes, launches those of 8
+    single-track runs); the engine burst's 10 requests as concurrent
+    ``POST /api/v2/master`` calls with the pro set, at the default
+    semaphore and at ``SERVICE_WIDE_SLOTS`` (wall, realtime factor, device
+    busy and idle share, the batches formed, launches those of the
+    batches, each stereo job's split); then analysis, the LUFS tool,
+    reference match, upscale, vocal isolation (the settings store's
+    override on) and auto mastering once each against the calls they
+    make."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="amw_service_")
+    saved = (runtime_settings.mastering_debug_skip_limits,
+             runtime_settings.rate_limit_per_minute, service.embed_branding)
+    # the last phase to use the port's database: its path is not restored
+    service_db.set_db_path(os.path.join(tmp, "service.sqlite3"))
+    runtime_settings.mastering_debug_skip_limits = True
+    runtime_settings.rate_limit_per_minute = 1 << 30
+    service.embed_branding = timed_branding(eng)
+    try:
+        with served(service.create_app(eng)) as base:
+            out = asyncio.run(service_requests(base, dev, eng))
+    finally:
+        service.embed_branding = saved[2]
+        runtime_settings.rate_limit_per_minute = saved[1]
+        runtime_settings.mastering_debug_skip_limits = saved[0]
+        eng.calls = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "service", "http": True, **out,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -2346,8 +2830,13 @@ def main() -> None:
              cpu_tracks=(0,), reps=3, pro={}, config=options_finish_config(),
              exciter_os=4, tp_ceiling_db=OPTIONS_TP_CEILING_DB)
     phase_vocal(dev)
-    phase_engine(dev, graphs)
-    del graphs
+    eng = RecordingEngine()
+    try:
+        phase_engine(dev, eng, graphs)
+        del graphs
+        phase_service(dev, eng)
+    finally:
+        eng.close()
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}

@@ -23,6 +23,8 @@ from amw_tpu.runtime.engine import MasteringEngine as JaxEngine
 from amw_tpu.runtime.engine import ValidationError as JaxValidationError
 from amw_tpu.utils import wav as jwav
 from amw_tpu_torch.runtime import config as tconfig
+from amw_tpu_torch.runtime import db as tdb
+from amw_tpu_torch.runtime import settings_store as tstore
 from amw_tpu_torch.runtime.engine import MasteringEngine, ValidationError
 from amw_tpu_torch.utils import wav as twav
 
@@ -54,7 +56,9 @@ def upload(x):
 @pytest.fixture(scope="module")
 def engines():
     tmp = tempfile.NamedTemporaryFile(suffix=".sqlite3")
+    tmp_port = tempfile.NamedTemporaryFile(suffix=".sqlite3")
     db.set_db_path(tmp.name)  # the JAX engine's settings store
+    tdb.set_db_path(tmp_port.name)  # the port's
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("AMW_HTDEMUCS_CKPT", raising=False)
         mp.setattr(jconfig.settings, "vocal_isolation_enabled", True)
@@ -63,6 +67,7 @@ def engines():
         yield JaxEngine(micro_batch=False), port
         port.close()
     tmp.close()
+    tmp_port.close()
 
 
 def _both(engines, data, **kw):
@@ -140,3 +145,36 @@ def test_vocal_isolation_disabled_raises(engines, monkeypatch):
         with pytest.raises(RuntimeError, match="disabled"):
             eng.master_v2_bytes(data, "t.wav", target_lufs=-14.0,
                                 pro={"apply_vocal_isolation": True})
+
+
+@pytest.mark.parametrize("override", ["false", "true"])
+def test_vocal_isolation_database_override(engines, monkeypatch, override):
+    """Both engines read the settings store's ``vocal_isolation_enabled``
+    before the env setting: the override off with the setting on raises
+    in both; on with the setting off, both run the separator."""
+    from amw_tpu.runtime import settings_store as jstore
+
+    jax_eng, port = engines
+    env_on = override == "false"
+    monkeypatch.setattr(jconfig.settings, "vocal_isolation_enabled", env_on)
+    monkeypatch.setattr(tconfig.settings, "vocal_isolation_enabled", env_on)
+    jstore.set_setting("vocal_isolation_enabled", override)
+    tstore.set_setting("vocal_isolation_enabled", override)
+    try:
+        data = upload(track(2.5, seed=4))
+        kw = dict(target_lufs=-14.0, out_format="wav32f",
+                  pro={"apply_vocal_isolation": True})
+        if override == "false":
+            for eng in (jax_eng, port):
+                with pytest.raises(RuntimeError,
+                                   match="Vocal isolation is disabled"):
+                    eng.master_v2_bytes(data, "t.wav", **kw)
+        else:
+            want, got = _both(engines, data, **kw)
+            a, _ = twav.read_wav(got["bytes"])
+            b, _ = jwav.read_wav(want["bytes"])
+            assert a.shape == b.shape and _db(a, b) <= BAR_DBFS
+            assert abs(got["after_lufs"] - want["after_lufs"]) <= METER_LU
+    finally:
+        jstore.set_setting("vocal_isolation_enabled", None)
+        tstore.set_setting("vocal_isolation_enabled", None)

@@ -214,3 +214,30 @@ def test_native_codecs_build_from_the_port_sources():
             f"lib{name}-"), path
         assert path == native.build.target(name)
         assert (ROOT / "amw_tpu_torch" / "native" / f"{name}.cpp").is_file()
+
+
+def test_service_modules_are_checked():
+    """The no-JAX check above covers the HTTP service and the modules
+    under it."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("runtime/service.py", "runtime/db.py",
+                "runtime/settings_store.py", "runtime/auth.py",
+                "runtime/users.py", "runtime/deps.py", "runtime/jobs.py",
+                "runtime/share_card.py", "runtime/server_metrics.py",
+                "runtime/notifier.py", "runtime/anomaly.py",
+                "runtime/knowledge.py", "runtime/ai.py", "utils/trace.py",
+                "utils/metadata.py", "utils/png.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+
+
+def test_service_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                        tmp_path):
+    from amw_tpu_torch.runtime import db, engine, service
+
+    db.set_db_path(str(tmp_path / "t.sqlite3"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(engine, "_default_engine", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        service.create_app()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        service.main(port=0)

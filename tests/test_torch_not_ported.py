@@ -45,6 +45,28 @@ def _warmup_with_checkpoint():
         warmup_htdemucs((180.0,))
 
 
+def _service_with(env):
+    """The port's ``create_app`` where the environment configures what the
+    JAX service would start and the port lacks."""
+    from amw_tpu_torch.runtime.service import create_app
+
+    with mock.patch.dict(os.environ, env):
+        create_app()
+
+
+def _recommend_with_anthropic_backend():
+    """The AI recommender where the anthropic LLM backend is configured."""
+    import tempfile
+
+    from amw_tpu_torch.runtime import ai, config, db
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(config.settings, "ai_backend", "anthropic"), \
+            mock.patch.object(config.settings, "anthropic_api_key", "k"):
+        db.set_db_path(os.path.join(tmp, "t.sqlite3"))
+        ai.recommend_preset({"lufs": -14.0})
+
+
 ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
 # case -> (trigger, amw_tpu module files named, what the message points at)
 CASES = {
@@ -56,6 +78,14 @@ CASES = {
     "warmup_htdemucs_checkpoint": (_warmup_with_checkpoint,
                                    ["amw_tpu/models/htdemucs_jax.py"],
                                    "ROADMAP.md"),
+    "service_bot_token": (lambda: _service_with(
+        {"AMW_TELEGRAM_BOT_TOKEN": "123:abc"}),
+        ["amw_tpu/runtime/bot.py"], "ROADMAP.md"),
+    "service_initial_admin": (lambda: _service_with(
+        {"AMW_ADMIN_EMAIL": "a@x.io", "AMW_ADMIN_PASSWORD": "pw"}),
+        ["amw_tpu/runtime/admin_routes.py"], "ROADMAP.md"),
+    "ai_anthropic_backend": (_recommend_with_anthropic_backend,
+                             ["amw_tpu/runtime/ai.py"], "ROADMAP.md"),
 }
 
 
@@ -101,4 +131,15 @@ def test_engine_docstring_names_the_unported_mesh_module():
 
     named = re.findall(r"amw_tpu/[\w/]+\.py", engine.__doc__)
     assert "amw_tpu/parallel/timeshard.py" in named
+    assert all((ROOT / p).is_file() for p in named)
+
+
+def test_service_docstring_names_existing_modules():
+    """The service's docstring names the JAX package's modules it leaves
+    out."""
+    from amw_tpu_torch.runtime import service
+
+    named = re.findall(r"amw_tpu/[\w/]+\.py", service.__doc__)
+    assert {"amw_tpu/runtime/service.py", "amw_tpu/runtime/bot.py",
+            "amw_tpu/runtime/auth_routes.py"} <= set(named)
     assert all((ROOT / p).is_file() for p in named)
