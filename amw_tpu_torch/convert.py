@@ -51,3 +51,19 @@ def params_from_jax(params, device=None):
     from . import resolve_device
 
     return to_device(params, resolve_device(device))
+
+
+def htdemucs_from_jax(params: dict, cfg=None, *, device=None, dtype=None):
+    """The port's htdemucs network (``models.htdemucs.HTDemucs``, frozen,
+    in eval mode) on ``device`` (default ``cuda``) from the JAX package's
+    parameter dict (``htdemucs_jax.init_params`` / ``load_params`` /
+    ``params_from_torch_state``: numpy arrays under the upstream names, in
+    the torch layouts, so each array is taken as it is).  ``cfg``: the
+    port's ``HTConfig`` (default the released shape); ``dtype``: the
+    weights' inference dtype (default ``htdemucs.inference_dtype``)."""
+    from .models import htdemucs
+
+    state = {k: torch.from_numpy(np.array(v, np.float32))
+             for k, v in params.items()}
+    return htdemucs.inference_model(cfg or htdemucs.HTConfig(), state,
+                                    device=device, dtype=dtype)

@@ -1,8 +1,16 @@
-"""Vocal isolation, the DSP separator (counterpart of the DSP path of
-``amw_tpu/models/vocal.py``).
+"""Vocal isolation: the htdemucs network where a checkpoint is configured,
+else the DSP separator (counterpart of ``amw_tpu/models/vocal.py``).
 
-A two-stem centre extractor in the STFT domain (``ops/spectral.stft`` /
-``istft``, on ``torch.fft``):
+The neural path (:func:`separate_htdemucs`): ``models/htdemucs.py`` on
+the weights of the configured checkpoint (:func:`htdemucs_checkpoint_path`:
+``AMW_HTDEMUCS_CKPT``, then the ``htdemucs_checkpoint`` setting of the
+runtime's settings store, i.e. its database row, then
+``MAGIC_MASTER_HTDEMUCS_CHECKPOINT`` / ``AMW_HTDEMUCS_CHECKPOINT``;
+``bundled`` is the port's converted tiny checkpoint), kept on the device
+in one copy a (path, device, dtype).
+
+The DSP separator, a two-stem centre extractor in the STFT domain
+(``ops/spectral.stft`` / ``istft``, on ``torch.fft``):
 
 - mid/side: lead vocals are overwhelmingly panned to the centre;
 - an inter-channel coherence mask: per STFT cell, the share of coherent
@@ -10,17 +18,18 @@ A two-stem centre extractor in the STFT domain (``ops/spectral.stft`` /
 - a vocal-band prior (raised-cosine edges at 80-160 Hz and 9-14 kHz)
   suppresses bass and air that sit in the centre but are not vocals.
 
-A mono track gets the band prior alone.  This is what the JAX package
-runs when no htdemucs checkpoint is configured.  The neural separator is
-not ported: with a checkpoint configured (``AMW_HTDEMUCS_CKPT``),
-:func:`isolate_vocal` raises ``NotImplementedError`` instead of quietly
-running the DSP separator where the JAX package would run the network.
+A mono track gets the band prior alone.  It runs where no checkpoint is
+configured, and where a configured one is missing or unreadable (with a
+logged warning), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 import os
+import threading
+import zipfile
 
 import numpy as np
 import torch
@@ -29,6 +38,7 @@ from .. import resolve_device
 from ..convert import to_device
 from ..ops.spectral import istft, stft
 from ..spec import GraphSpec
+from . import htdemucs
 
 NPERSEG = 2048
 
@@ -90,40 +100,157 @@ def is_available() -> bool:
     return True
 
 
+_log = logging.getLogger(__name__)
+
+BUNDLED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "checkpoints", "htdemucs_tiny.npz")
+CONVERTER = "scripts/convert_htdemucs_port.py"
+
+
 def htdemucs_checkpoint_path() -> str | None:
-    """The configured htdemucs checkpoint, ``AMW_HTDEMUCS_CKPT`` as given,
-    or ``None``.  (The JAX package also reads the runtime settings store,
-    which comes to the port with the runtime, and resolves the value to a
-    directory it loads; the port loads nothing yet.)"""
-    return os.environ.get("AMW_HTDEMUCS_CKPT") or None
+    """The configured htdemucs checkpoint, or ``None``: ``AMW_HTDEMUCS_CKPT``,
+    else the settings store's ``htdemucs_checkpoint`` (its database row,
+    else ``Settings.htdemucs_checkpoint``, read from the environment when
+    the settings were built), in the JAX package's order.  ``bundled`` is
+    the port's own converted copy of the JAX package's trained tiny
+    checkpoint (``checkpoints/htdemucs_tiny.npz``, written by
+    ``scripts/convert_htdemucs_port.py``); any other value is expanded and
+    made absolute."""
+    path = os.environ.get("AMW_HTDEMUCS_CKPT")
+    if not path:
+        try:
+            from ..runtime import settings_store
+
+            path = settings_store.get_setting_str(
+                "htdemucs_checkpoint", None) or None
+        except Exception:  # noqa: BLE001 — models layer must work standalone
+            path = None
+    if not path:
+        return None
+    if path == "bundled":
+        return BUNDLED
+    return os.path.abspath(os.path.expanduser(path))
 
 
-def _htdemucs_not_ported():
-    raise NotImplementedError(
-        "the htdemucs vocal separator is not ported to amw_tpu_torch yet "
-        "(ROADMAP.md, 'Modules to port': amw_tpu/models/htdemucs_jax.py);"
-        " unset AMW_HTDEMUCS_CKPT to run the DSP separator")
+def _is_orbax(path: str) -> bool:
+    return os.path.isdir(path) and any(
+        os.path.exists(os.path.join(path, name))
+        for name in ("_CHECKPOINT_METADATA", "manifest.ocdbt"))
 
 
-def warmup_htdemucs(durations_sec) -> int:
-    """The engine's warmup of the neural separator: nothing to warm without
-    a configured checkpoint (returns 0, the number of buckets warmed, as
-    the JAX package's); with one it raises ``NotImplementedError``, as
-    :func:`isolate_vocal` does."""
-    if htdemucs_checkpoint_path():
-        _htdemucs_not_ported()
-    return 0
+_ht_lock = threading.Lock()
+_ht_cache: dict = {}  # (path, device, dtype) -> (cfg, model)
+
+
+def _htdemucs(device: torch.device):
+    """``(cfg, model)`` for the configured checkpoint on ``device`` in the
+    inference dtype, or ``None`` (no checkpoint, or one that is missing or
+    unreadable: a logged warning, and the DSP separator runs, as in the
+    JAX package).  Only successful loads are cached, keyed by (path,
+    device, dtype), so a new ``htdemucs_checkpoint`` takes effect on the
+    next request; a new path drops the other paths' weights.  Locked: the
+    warmup thread and the first request would otherwise load the same
+    weights twice.  An orbax directory (the JAX package's format) raises
+    ``ValueError`` naming the converter; a device error raises."""
+    path = htdemucs_checkpoint_path()
+    if path is None:
+        return None
+    if _is_orbax(path):
+        raise ValueError(
+            f"htdemucs checkpoint {path} is an orbax directory of the JAX "
+            f"package; convert it to the port's format with {CONVERTER}")
+    key = (path, device, htdemucs.inference_dtype(device))
+    with _ht_lock:
+        if key in _ht_cache:
+            return _ht_cache[key]
+        try:
+            cfg, state = htdemucs.load_params(path)
+            model = htdemucs.inference_model(cfg, state, device=device,
+                                             dtype=key[2])
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            _log.warning("htdemucs checkpoint %s does not load (%s); the "
+                         "DSP separator runs", path, e)
+            return None
+        for k in [k for k in _ht_cache if k[0] != path]:
+            del _ht_cache[k]
+        _ht_cache[key] = (cfg, model)
+        return _ht_cache[key]
+
+
+def warmup_htdemucs(durations_sec, *, device=None) -> int:
+    """The engine's warmup of the neural separator on ``device`` (default
+    ``cuda``): loads the configured checkpoint's weights onto the device
+    and runs one separation of silence (vocals only) for each distinct
+    window-group bucket (``htdemucs.oa_plan``'s ``nb_b``) of
+    ``durations_sec``, the call a request of that length makes, so that
+    cuDNN and cuBLAS load their kernels for its shapes before the first
+    request.  Returns the number of buckets, as the JAX package's; 0
+    without a checkpoint."""
+    dev = resolve_device(device)
+    loaded = _htdemucs(dev)
+    if loaded is None:
+        return 0
+    cfg, model = loaded
+    seen: set = set()
+    for dur in durations_sec:
+        T = int(cfg.samplerate * float(dur))
+        nb_b = htdemucs.oa_plan(cfg, T)[3]
+        if nb_b in seen:
+            continue
+        seen.add(nb_b)
+        htdemucs.separate(model, np.zeros((2, T), np.float32),
+                          stems=("vocals",))
+    return len(seen)
+
+
+def separate_htdemucs(audio: np.ndarray, sr: int, *,
+                      device=None) -> np.ndarray | None:
+    """[C, N] -> vocals [C, N] through the htdemucs network on ``device``
+    (default ``cuda``), or ``None`` where no weights load.  The model rate
+    is reached and left on the host with ``scipy.signal.resample``, in
+    float64, as the JAX package does; a mono track is separated as
+    doubled stereo and gets the mean of the two vocal channels; the
+    output is clipped to full scale."""
+    dev = resolve_device(device)
+    loaded = _htdemucs(dev)
+    if loaded is None:
+        return None
+    cfg, model = loaded
+    x = np.atleast_2d(np.ascontiguousarray(audio, np.float32))
+    if x.shape[0] == 1:
+        x = np.repeat(x, 2, axis=0)
+    n = x.shape[-1]
+    if sr != cfg.samplerate:
+        import scipy.signal as sg
+
+        n_model = int(round(n * cfg.samplerate / sr))
+        x = np.stack([sg.resample(ch.astype(np.float64), n_model)
+                      for ch in x]).astype(np.float32)
+    vocals = htdemucs.separate(model, x, stems=("vocals",))[0]
+    if sr != cfg.samplerate:
+        import scipy.signal as sg
+
+        vocals = np.stack(
+            [sg.resample(np.asarray(ch, np.float64), n)
+             for ch in vocals]).astype(np.float32)
+    if audio.ndim == 2 and audio.shape[0] == 1:
+        vocals = vocals.mean(axis=0, keepdims=True)
+    return np.clip(vocals, -1.0, 1.0).astype(np.float32)
 
 
 def isolate_vocal(audio: np.ndarray, sr: int, model: str = "htdemucs", *,
                   device=None) -> np.ndarray:
-    """Vocals of one track ``audio`` [C, N] (numpy), like it: the DSP
-    separator on ``device`` (default ``cuda``).  ``model`` ``htdemucs`` or
-    ``auto`` asks for the network where a checkpoint is configured, which
-    the port does not have yet: that raises ``NotImplementedError``."""
-    if model in ("htdemucs", "auto") and htdemucs_checkpoint_path():
-        _htdemucs_not_ported()
+    """Vocals of one track ``audio`` [C, N] (numpy), like it, on ``device``
+    (default ``cuda``): the htdemucs network for ``model`` ``htdemucs`` or
+    ``auto`` where a checkpoint is configured and loads, else the DSP
+    separator (the reference's model choice,
+    services/vocal_isolation.py:23)."""
     dev = resolve_device(device)
+    if model in ("htdemucs", "auto"):
+        vocals = separate_htdemucs(audio, sr, device=dev)
+        if vocals is not None:
+            return vocals
     params, fn = _built(sr, audio.shape[-1], audio.shape[0], dev)
     x = torch.as_tensor(np.ascontiguousarray(audio, np.float32), device=dev)
     with torch.no_grad():
@@ -134,7 +261,8 @@ def isolate_vocal_bytes(audio_bytes: bytes, filename: str,
                         model: str = "htdemucs", *, device=None) -> bytes:
     """Bytes-level contract of the reference's ``isolate_vocal``: decode
     (``utils/audio_io``), :func:`isolate_vocal` on ``device`` (default
-    ``cuda``), a float32 WAV of the vocals."""
+    ``cuda``; the network where a checkpoint is configured), a float32 WAV
+    of the vocals."""
     from ..utils import wav
     from ..utils.audio_io import load_audio_from_bytes
 

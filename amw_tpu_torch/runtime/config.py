@@ -121,6 +121,12 @@ class Settings:
     anomaly_rss_max_mb: int = 8192
     anomaly_min_jobs_for_error_rate: int = 8
 
+    # Vocal isolation: the htdemucs checkpoint the neural separator loads
+    # ("" = the DSP separator; "bundled" = the port's converted tiny
+    # checkpoint; else a path to a checkpoint file of models/htdemucs.py's
+    # format).
+    htdemucs_checkpoint: str = ""
+
     def __post_init__(self):
         for f in fields(self):
             object.__setattr__(self, f.name, _env(f.name, getattr(self, f.name)))

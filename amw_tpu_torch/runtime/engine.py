@@ -373,12 +373,13 @@ class MasteringEngine:
                     _log.warning("warmup failed for bucket %.0fs", sec,
                                  exc_info=True)
         # htdemucs: nothing to warm without a checkpoint (the DSP
-        # separator); with one configured the network is not ported
+        # separator); with one configured, its weights and one separation
+        # a window-group bucket on the engine's device
         if buckets_sec:
             try:
                 from ..models import vocal
 
-                vocal.warmup_htdemucs(buckets_sec)
+                vocal.warmup_htdemucs(buckets_sec, device=self.device)
             except Exception:  # noqa: BLE001 — warmup is best-effort
                 _log.warning("htdemucs warmup failed", exc_info=True)
 

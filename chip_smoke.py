@@ -102,6 +102,29 @@ Phases, each printing JSON lines:
              where it engages; ``vocal_180s``, the DSP vocal separator
              (``isolate_vocal``) on a stereo and a mono 180 s track, one a
              call; each with launch counts and parity with the CPU path;
+   htdemucs — the neural vocal separator (``models/htdemucs.py``: cuDNN,
+             cuBLAS, cuFFT, no hand kernel), with cuDNN's and cuBLAS's TF32
+             switches on (its f32 forwards turn them off themselves): (a)
+             ``isolate_vocal`` on the bundled checkpoint
+             (``AMW_HTDEMUCS_CKPT=bundled``) for a 180 s stereo and a mono
+             track in f32 and bf16 (f32 against the port's CPU path, <= -90
+             dBFS, <= 0.1 LU; bf16 against f32, SNR >= 30 dB; the wall of
+             a call, median of 3; the network's own CUDA-event ms on the
+             8 kHz track) and the checkpoint's separation gate in bf16 on
+             the card; (b) the released shape with seeded weights, saved
+             to a temporary file that ``AMW_HTDEMUCS_CKPT`` names:
+             ``isolate_vocal`` of a 180 s track at 44.1 kHz in f32 and
+             bf16 and ``warmup_htdemucs`` of 180 s through the entry
+             points, then on the models they loaded one 7.8 s segment
+             against the CPU (<= -90 dBFS), the track
+             separated in f32 and bf16 (CUDA-event ms, realtime factor,
+             peak memory, the FLOP bound; SNR >= 30 dB), a profile of the
+             bf16 track by kernel class; (c) ``MasteringEngine`` on the
+             card masters a 30 s upload with ``apply_vocal_isolation``
+             under the database row ``htdemucs_checkpoint = bundled``,
+             within 2.5 LSB and 0.01 LU of the v2 graph on
+             ``separate_htdemucs``'s vocals, then ``warmup_htdemucs`` of
+             180 s warms one bucket;
 9. engine  — the serving engine (``runtime/engine.MasteringEngine()`` on
              the card, micro-batch on): ``warmup((180,))`` (the default
              graph cached and run once), one warm request of each kind,
@@ -174,6 +197,7 @@ import time
 
 import aiohttp
 import numpy as np
+import scipy.signal
 import torch
 from aiohttp import web
 
@@ -187,6 +211,7 @@ from amw_tpu_torch.models import (analyze, build_v1_pipeline,
 from amw_tpu_torch.convert import to_device
 from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.models.v2_job import resolve_denoise
+from amw_tpu_torch.models import htdemucs, vocal
 from amw_tpu_torch.models.vocal import isolate_vocal, isolate_vocal_bytes
 from amw_tpu_torch.ops import (_cuda, design, dither, fdfilter, meters, scan,
                                validctx)
@@ -204,6 +229,7 @@ from amw_tpu_torch.runtime import jobs as service_jobs
 from amw_tpu_torch.runtime import progress, service, settings_store
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
+from amw_tpu_torch.scripts import htdemucs_gate
 from amw_tpu_torch.scripts.ab_bccb import kernel_ms
 from amw_tpu_torch.utils import wav
 from amw_tpu_torch.utils.metadata import embed_branding
@@ -1793,6 +1819,367 @@ def phase_vocal(dev, reps: int = 3) -> None:
           "tracks": out})
 
 
+# ---- the neural vocal separator (htdemucs) --------------------------------
+
+HT_SEED = 31
+HT_ENGINE_S = 30.0  # the engine run's track: the 30 s bucket's graph
+HT_SNR_DB = 30.0  # bf16 against f32 (tests/test_htdemucs_parity.py:87-106)
+HT_REPS = 3
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+# device kernels by class, first match (torch.profiler kernel names)
+KERNEL_CLASSES = (("fft", ("fft",)), ("softmax", ("softmax",)),
+                  ("convolution", ("fprop", "dgrad", "wgrad", "conv",
+                                   "implicit", "winograd", "cudnn")),
+                  ("gemm", ("gemm", "nvjet", "matmul", "cublas", "cutlass")),
+                  ("copy", ("memcpy", "memset")))
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "elementwise"
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set (``None``: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
+    ref = ref.astype(np.float64)
+    return float(10 * np.log10(np.sum(ref ** 2) / max(
+        np.sum((ref - est) ** 2), 1e-30)))
+
+
+def ht_bundled(dev) -> dict:
+    """(a) ``isolate_vocal`` on the bundled checkpoint (source 1,
+    ``AMW_HTDEMUCS_CKPT=bundled``) for a 180 s stereo and a 180 s mono
+    track, f32 and bf16 on the card: the network ran (its weights cached
+    for the dtype), none of the 13 kernels launched, shape, finite, full
+    scale; card f32 against the port's CPU f32 path (<= -90 dBFS, <= 0.1
+    LU), card bf16 against card f32 (SNR >= 30 dB); the wall of a call
+    (median of 3 after a first); the separation gate in bf16 on the card."""
+    out = {}
+    with env_set(AMW_HTDEMUCS_CKPT="bundled"):
+        for label, channels in (("stereo", 2), ("mono", 1)):
+            x = make_track(SR, LONG[0], seed=HT_SEED)[:channels]
+            n = x.shape[-1]
+            run = {}
+            ys = {}
+            for mode in ("f32", "bf16"):
+                with env_set(AMW_HTDEMUCS_DTYPE=mode):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    y = isolate_vocal(x, SR, device=dev)
+                    first_s = time.perf_counter() - t0
+                    launches = read_counts()
+                    key = (vocal.BUNDLED, dev, htdemucs.inference_dtype(dev))
+                    check(key in vocal._ht_cache,
+                          f"htdemucs {label} {mode}: the network did not run")
+                    check(not any(launches.values()),
+                          f"htdemucs {label} {mode}: launches {launches}")
+                    check(y.shape == x.shape and y.dtype == np.float32,
+                          f"htdemucs {label} {mode}: {y.dtype} {y.shape}")
+                    check(bool(np.all(np.isfinite(y)))
+                          and float(np.abs(y).max()) <= 1.0,
+                          f"htdemucs {label} {mode}: non-finite or over "
+                          "full scale")
+                    walls = []
+                    for _ in range(HT_REPS):
+                        t0 = time.perf_counter()
+                        isolate_vocal(x, SR, device=dev)
+                        walls.append(time.perf_counter() - t0)
+                    wall = statistics.median(walls)
+                ys[mode] = y
+                run[mode] = {"first_call_s": first_s, "wall_s": wall,
+                             "walls_s": walls,
+                             "realtime_factor": n / SR / wall}
+            with env_set(AMW_HTDEMUCS_DTYPE="f32"):
+                t0 = time.perf_counter()
+                y_cpu = isolate_vocal(x, SR, device="cpu")
+                cpu_s = time.perf_counter() - t0
+            err = float(np.max(np.abs(ys["f32"] - y_cpu)))
+            err_db = 20 * np.log10(max(err, 1e-30))
+            nv = np.array([n], np.int32)
+            d_lu = float(np.max(np.abs(track_lufs(ys["f32"][None], nv)
+                                       - track_lufs(y_cpu[None], nv))))
+            check(err_db <= PARITY_DBFS,
+                  f"htdemucs {label}: f32 card vs CPU {err_db:.1f} dBFS")
+            check(d_lu <= PARITY_LU,
+                  f"htdemucs {label}: f32 card vs CPU {d_lu} LU")
+            snr = snr_db(ys["f32"], ys["bf16"])
+            check(snr >= HT_SNR_DB,
+                  f"htdemucs {label}: bf16 vs f32 SNR {snr:.1f} dB")
+            if channels == 2:  # the network alone on the 8 kHz track
+                cfg = vocal._htdemucs(dev)[0]
+                x8 = scipy.signal.resample(
+                    x.astype(np.float64), int(round(n * cfg.samplerate / SR)),
+                    axis=-1).astype(np.float32)
+                for mode in ("f32", "bf16"):
+                    with env_set(AMW_HTDEMUCS_DTYPE=mode):
+                        model = vocal._htdemucs(dev)[1]
+                        run[mode]["network_ms"] = cuda_ms(
+                            lambda: htdemucs.separate(model, x8,
+                                                      stems=("vocals",)),
+                            reps=HT_REPS, warmup=1)
+            out[label] = {**run, "channels": channels,
+                          "f32_max_err_vs_cpu": err,
+                          "f32_max_err_vs_cpu_dbfs": err_db,
+                          "f32_max_lu_delta_vs_cpu": d_lu,
+                          "cpu_f32_s": cpu_s, "bf16_snr_vs_f32_db": snr}
+        with env_set(AMW_HTDEMUCS_DTYPE="bf16"):
+            cfg, model = vocal._htdemucs(dev)
+            s_model, s_mix = htdemucs_gate.vocals_snr(model)
+        check(htdemucs_gate.passes(s_model, s_mix),
+              f"htdemucs: bundled checkpoint separation gate {s_model:.2f} "
+              f"dB (mixture {s_mix:.2f} dB)")
+    out["gate_bf16"] = {"vocals_snr_db": s_model, "mix_snr_db": s_mix}
+    out["params"] = sum(p.numel() for p in model.parameters())
+    return out
+
+
+def ht_released(dev) -> dict:
+    """(b) The released shape (``HTConfig()``, ``init_params(seed=0)``),
+    written by ``save_params`` to a temporary file and served through the
+    entry points: ``isolate_vocal`` of a 180 s stereo track at 44.1 kHz
+    (the model's rate: no resample) with ``AMW_HTDEMUCS_CKPT`` naming the
+    file, in f32 and bf16 (the weights cached under the file's key for each
+    dtype, none of the 13 kernels launched; shape, finite, full scale; bf16
+    vs f32 SNR >= 30 dB), then ``warmup_htdemucs((180,))`` (one bucket).
+    On the models the entry point loaded: one 7.8 s segment at batch 1,
+    card f32 against CPU f32 (<= -90 dBFS); ``separate`` of the track
+    (vocals) in f32 and bf16 (SNR >= 30 dB; its f32 vocals are the entry
+    point's within -90 dBFS): CUDA-event ms a track (median of 3 after
+    one), realtime factor, peak device memory, the FLOPs of the windows run
+    (``torch.utils.flop_counter`` on one segment, times the windows) over
+    the peak rate of the dtype; a torch.profiler run of one bf16 track:
+    device time by kernel class, idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = htdemucs.HTConfig()
+    check(cfg.samplerate == SR, f"released rate {cfg.samplerate}")
+    tmp = tempfile.mkdtemp(prefix="amw_htdemucs_released_")
+    path = os.path.join(tmp, "htdemucs_released.npz")
+    t0 = time.perf_counter()
+    state = htdemucs.init_params(cfg, seed=0)
+    htdemucs.save_params(state, path, cfg)
+    cpu_model = htdemucs.inference_model(cfg, state, device="cpu",
+                                         dtype=torch.float32)
+    build_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in state.values())
+    del state
+    x = make_track(SR, LONG[0], seed=HT_SEED)
+    models, voc, entry = {}, {}, {}
+    try:
+        with env_set(AMW_HTDEMUCS_CKPT=path):
+            for mode in ("f32", "bf16"):
+                with env_set(AMW_HTDEMUCS_DTYPE=mode):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    voc[mode] = isolate_vocal(x, SR, device=dev)
+                    first_s = time.perf_counter() - t0
+                    launches = read_counts()
+                    key = (path, dev, htdemucs.inference_dtype(dev))
+                    check(key in vocal._ht_cache,
+                          f"released {mode}: isolate_vocal did not run the "
+                          "network")
+                    check(not any(launches.values()),
+                          f"released {mode}: launches {launches}")
+                    check(voc[mode].shape == x.shape
+                          and bool(np.all(np.isfinite(voc[mode])))
+                          and float(np.abs(voc[mode]).max()) <= 1.0,
+                          f"released {mode}: isolate_vocal "
+                          f"{voc[mode].shape}, non-finite or over full "
+                          "scale")
+                    models[mode] = vocal._ht_cache[key][1]
+                    entry[mode] = {"first_call_s": first_s}
+            with env_set(AMW_HTDEMUCS_DTYPE="bf16"):
+                t0 = time.perf_counter()
+                warmed = vocal.warmup_htdemucs((LONG[0],), device=dev)
+                warm_s = time.perf_counter() - t0
+        check(warmed == 1, f"released warmup: {warmed} buckets")
+    finally:
+        for k in [k for k in vocal._ht_cache if k[0] == path]:
+            del vocal._ht_cache[k]
+        shutil.rmtree(tmp, ignore_errors=True)
+    entry_snr = snr_db(voc["f32"], voc["bf16"])
+    check(entry_snr >= HT_SNR_DB,
+          f"released isolate_vocal: bf16 vs f32 SNR {entry_snr:.1f} dB")
+    seg = make_track(SR, cfg.segment, seed=HT_SEED + 1)[None]
+    check(seg.shape[-1] == cfg.segment_samples, f"segment {seg.shape}")
+    y_card = htdemucs.forward(models["f32"], seg).cpu().numpy()
+    t0 = time.perf_counter()
+    y_cpu = htdemucs.forward(cpu_model, seg).numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    seg_err = float(np.max(np.abs(y_card - y_cpu)))
+    seg_db = 20 * np.log10(max(seg_err, 1e-30))
+    check(y_card.shape == (1, 4, 2, seg.shape[-1]),
+          f"released segment {y_card.shape}")
+    check(seg_db <= PARITY_DBFS,
+          f"released segment f32 card vs CPU {seg_db:.1f} dBFS")
+    with FlopCounterMode(display=False) as fc:
+        htdemucs.forward(models["bf16"], seg)
+    seg_flops = fc.get_total_flops()
+
+    plan = htdemucs.oa_plan(cfg, x.shape[-1])
+    windows = len(plan[2])
+    flops = seg_flops * windows
+    runs, ys = {}, {}
+    for mode, model in models.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ys[mode] = htdemucs.separate(model, x, stems=("vocals",))
+        ms = cuda_ms(lambda: htdemucs.separate(model, x, stems=("vocals",)),
+                     reps=HT_REPS, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(ys[mode].shape == (1,) + x.shape
+              and bool(np.all(np.isfinite(ys[mode]))),
+              f"released {mode}: {ys[mode].shape}, non-finite")
+        rate = BF16_FLOPS if mode == "bf16" else F32_FLOPS
+        runs[mode] = {"ms": ms, "realtime_factor": LONG[0] / (ms / 1e3),
+                      "peak_gb": peak, "bound_ms": flops / rate * 1e3,
+                      "bound_by": "operations",
+                      "share_of_bound": flops / rate * 1e3 / ms}
+    snr = snr_db(ys["f32"], ys["bf16"])
+    check(snr >= HT_SNR_DB, f"released: bf16 vs f32 SNR {snr:.1f} dB")
+    entry_err = float(np.max(np.abs(
+        np.clip(ys["f32"][0], -1.0, 1.0) - voc["f32"])))
+    entry_db = 20 * np.log10(max(entry_err, 1e-30))
+    check(entry_db <= PARITY_DBFS, f"released f32: isolate_vocal vs "
+          f"separate {entry_db:.1f} dBFS")
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        htdemucs.separate(models["bf16"], x, stems=("vocals",))
+        torch.cuda.synchronize()
+    rows = device_rows(prof, 1)
+    by_class: dict = {}
+    for name, ms, calls in rows:
+        c = by_class.setdefault(kernel_class(name), {"ms": 0.0, "calls": 0})
+        c["ms"] += ms
+        c["calls"] += calls
+    busy = sum(r[1] for r in rows)
+    wall = runs["bf16"]["ms"]
+    del models
+    return {"params": n_params, "build_s": build_s,
+            "segment_samples": seg.shape[-1],
+            "segment_f32_max_err_vs_cpu": seg_err,
+            "segment_f32_max_err_vs_cpu_dbfs": seg_db,
+            "segment_cpu_s": cpu_s, "segment_flops": seg_flops,
+            "windows": windows, "track_flops": flops, "runs": runs,
+            "bf16_snr_vs_f32_db": snr,
+            "isolate_vocal": {**entry, "bf16_snr_vs_f32_db": entry_snr,
+                              "f32_max_err_vs_separate_dbfs": entry_db,
+                              "warmup_buckets": warmed,
+                              "warmup_s": warm_s},
+            "profile_bf16": {
+                "wall_ms": wall, "device_ms": busy if rows else None,
+                "device_idle_share": 1.0 - busy / wall if rows else None,
+                "by_class": by_class,
+                "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                        for k, ms, c in rows[:12]]}}
+
+
+def ht_engine(dev) -> dict:
+    """(c) The engine: ``MasteringEngine(device=cuda)`` masters a 30 s
+    stereo upload with ``apply_vocal_isolation`` under the bundled
+    checkpoint, configured by the database row (source 3) of a temporary
+    database: the response within 2.5 LSB and 0.01 LU of the v2 graph
+    (``build_v2_job_graph``) run directly on ``separate_htdemucs``'s
+    vocals of the decoded upload; then ``warmup_htdemucs((180,))`` warms
+    one bucket."""
+    tmp = tempfile.mkdtemp(prefix="amw_htdemucs_")
+    saved = (runtime_settings.vocal_isolation_enabled, service_db.db_path())
+    service_db.set_db_path(os.path.join(tmp, "htdemucs.sqlite3"))
+    runtime_settings.vocal_isolation_enabled = True
+    settings_store.set_setting("htdemucs_checkpoint", "bundled")
+    eng = MasteringEngine(micro_batch=False, device=dev)
+    try:
+        with env_set(AMW_HTDEMUCS_CKPT=None, AMW_HTDEMUCS_DTYPE=None):
+            x = make_track(SR, HT_ENGINE_S, seed=HT_SEED + 2)
+            data = wav16(x)
+            t0 = time.perf_counter()
+            res = eng.master_v2_bytes(data, "t.wav", target_lufs=TARGET_LUFS,
+                                      pro={"apply_vocal_isolation": True})
+            wall = time.perf_counter() - t0
+            split = eng.last_timings()
+            audio = wav.read_wav(data)[0]
+            voc = vocal.separate_htdemucs(audio, SR, device=dev)
+            check(voc is not None, "engine: the network did not load")
+            n = audio.shape[-1]
+            spec = eng._spec_for(SR, n, 2)
+            params, fn, _ = build_v2_job_graph(spec, None, {}, TARGET_LUFS,
+                                               "standard", device=dev)
+            with torch.inference_mode():
+                y = fn(torch.from_numpy(eng._pad(voc, spec.n)[None]).to(dev),
+                       params, torch.tensor([n], dtype=torch.int32,
+                                            device=dev))
+                lsb = lsb_err(res["bytes"], y["out"][0, :, :n])
+                d_lu = abs(res["after_lufs"] - float(y["after_lufs"][0]))
+            check(lsb <= WAV16_LSB, f"htdemucs engine: {lsb} LSB from the "
+                  "graph on the separated vocals")
+            check(d_lu <= METER_LU, f"htdemucs engine: after_lufs {d_lu} LU")
+            t0 = time.perf_counter()
+            warmed = vocal.warmup_htdemucs((LONG[0],), device=dev)
+            warm_s = time.perf_counter() - t0
+            check(warmed == 1, f"htdemucs warmup: {warmed} buckets")
+    finally:
+        eng.close()
+        settings_store.set_setting("htdemucs_checkpoint", None)
+        runtime_settings.vocal_isolation_enabled = saved[0]
+        service_db.set_db_path(saved[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"track_s": HT_ENGINE_S, "bucket_n": spec.n, "wall_s": wall,
+            "vocal_s": split.get("vocal"), "max_lsb": lsb,
+            "after_lu_delta": d_lu, "warmup_buckets": warmed,
+            "warmup_s": warm_s}
+
+
+def phase_htdemucs(dev) -> None:
+    """The neural vocal separator (``models/htdemucs.py`` through
+    ``models/vocal.py``; cuDNN, cuBLAS and cuFFT, no hand kernel): (a) the
+    bundled checkpoint, (b) the released shape with seeded weights, (c)
+    through the engine.  Run with cuDNN's and cuBLAS's TF32 switches on (the
+    smoke's kernel phases turned them off): the f32 forwards must turn TF32
+    off themselves; the smoke's switches are put back after."""
+    t_phase = time.perf_counter()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        bundled = ht_bundled(dev)
+        released = ht_released(dev)
+        engine = ht_engine(dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    emit({"phase": "htdemucs", "track_s": LONG[0], "bundled": bundled,
+          "released": released, "engine": engine,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def device_rows(prof, reps: int) -> list:
     """(name, device ms per rep, calls per rep) of every device-side event
     of a torch.profiler run, costliest first."""
@@ -2830,6 +3217,7 @@ def main() -> None:
              cpu_tracks=(0,), reps=3, pro={}, config=options_finish_config(),
              exciter_os=4, tp_ceiling_db=OPTIONS_TP_CEILING_DB)
     phase_vocal(dev)
+    phase_htdemucs(dev)
     eng = RecordingEngine()
     try:
         phase_engine(dev, eng, graphs)

@@ -178,3 +178,34 @@ def test_vocal_isolation_database_override(engines, monkeypatch, override):
     finally:
         jstore.set_setting("vocal_isolation_enabled", None)
         tstore.set_setting("vocal_isolation_enabled", None)
+
+
+def test_vocal_isolation_runs_the_network(engines, monkeypatch):
+    """With the database row ``htdemucs_checkpoint = bundled`` in each
+    package's settings store, both engines separate with the network on
+    their own copy of the bundled checkpoint before the v2 graph; the
+    outputs agree at the v2 bars, and the port's is not its DSP one."""
+    from amw_tpu.runtime import settings_store as jstore
+    from amw_tpu_torch.models import vocal as tvo
+
+    monkeypatch.setattr(tvo, "_ht_cache", {})
+    data = upload(track(2.5, seed=6))
+    kw = dict(target_lufs=-14.0, out_format="wav32f",
+              pro={"apply_vocal_isolation": True})
+    _, port = engines
+    dsp = port.master_v2_bytes(data, "t.wav", **kw)
+    for store in (jstore, tstore):
+        store.set_setting("htdemucs_checkpoint", "bundled")
+    try:
+        want, got = _both(engines, data, **kw)
+    finally:
+        for store in (jstore, tstore):
+            store.set_setting("htdemucs_checkpoint", None)
+    assert [k[0] for k in tvo._ht_cache] == [tvo.BUNDLED]
+    a, _ = twav.read_wav(got["bytes"])
+    b, _ = jwav.read_wav(want["bytes"])
+    c, _ = twav.read_wav(dsp["bytes"])
+    assert a.shape == b.shape and _db(a, b) <= BAR_DBFS
+    assert abs(got["after_lufs"] - want["after_lufs"]) <= METER_LU
+    assert abs(got["before_lufs"] - want["before_lufs"]) <= METER_LU
+    assert _db(a, c) > -40.0

@@ -32,10 +32,25 @@ def test_no_jax_or_amw_tpu_import(path):
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from amw_tpu_torch import GraphSpec, resolve_device
-    from amw_tpu_torch.convert import params_from_jax
-    from amw_tpu_torch.models import build_v1_pipeline, master_v1
+    from amw_tpu_torch.convert import htdemucs_from_jax, params_from_jax
+    from amw_tpu_torch.models import build_v1_pipeline, htdemucs, master_v1
+    from amw_tpu_torch.models import vocal
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the htdemucs network's entry points, with the checkpoint configured
+    monkeypatch.setenv("AMW_HTDEMUCS_CKPT", "bundled")
+    cfg = htdemucs.tiny_config()
+    state = htdemucs.init_params(cfg)
+    mix = np.zeros((2, cfg.segment_samples), np.float32)
+    for call in (lambda: htdemucs.inference_model(cfg, state, device=None),
+                 lambda: htdemucs.separate(state, mix, cfg),
+                 lambda: htdemucs_from_jax(
+                     {k: v.numpy() for k, v in state.items()}, cfg),
+                 lambda: vocal.separate_htdemucs(mix, cfg.samplerate),
+                 lambda: vocal.warmup_htdemucs((180.0,)),
+                 lambda: vocal.isolate_vocal(mix, cfg.samplerate)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     spec = GraphSpec(sr=44100, n=44100, channels=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_v1_pipeline(spec)

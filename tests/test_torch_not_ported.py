@@ -1,5 +1,6 @@
 """What the port raises for an ``amw_tpu`` module it does not have yet,
-and where a graph leaves a job to the engine.
+where a graph leaves a job to the engine, and for an htdemucs checkpoint
+in the JAX package's format (orbax), which it cannot read.
 
 Every such ``NotImplementedError`` names the JAX package's module file
 (``amw_tpu/...py``) instead of a queue number of ROADMAP.md, so a
@@ -32,19 +33,6 @@ def _v2(pro):
     return lambda: build_v2_job_graph(SPEC, None, pro, device="cpu")
 
 
-def _isolate_with_checkpoint():
-    """``isolate_vocal`` where an htdemucs checkpoint is configured: the
-    JAX package would run the network there, which the port lacks."""
-    with mock.patch.dict(os.environ, {"AMW_HTDEMUCS_CKPT": str(ROOT)}):
-        isolate_vocal(np.zeros((2, 4096), np.float32), SR, device="cpu")
-
-
-def _warmup_with_checkpoint():
-    """The engine's htdemucs warmup where a checkpoint is configured."""
-    with mock.patch.dict(os.environ, {"AMW_HTDEMUCS_CKPT": str(ROOT)}):
-        warmup_htdemucs((180.0,))
-
-
 def _service_with(env):
     """The port's ``create_app`` where the environment configures what the
     JAX service would start and the port lacks."""
@@ -72,12 +60,6 @@ ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
 CASES = {
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
                            ["amw_tpu/runtime/engine.py"], ENGINE_V2),
-    "vocal_htdemucs_checkpoint": (_isolate_with_checkpoint,
-                                  ["amw_tpu/models/htdemucs_jax.py"],
-                                  "ROADMAP.md"),
-    "warmup_htdemucs_checkpoint": (_warmup_with_checkpoint,
-                                   ["amw_tpu/models/htdemucs_jax.py"],
-                                   "ROADMAP.md"),
     "service_bot_token": (lambda: _service_with(
         {"AMW_TELEGRAM_BOT_TOKEN": "123:abc"}),
         ["amw_tpu/runtime/bot.py"], "ROADMAP.md"),
@@ -114,6 +96,26 @@ def test_not_ported_message_names_an_existing_module(case):
         assert (ROOT / path).is_file(), path
     if pointer != "ROADMAP.md":
         assert callable(_resolve(pointer)), pointer
+
+
+ORBAX_CKPT = ROOT / "amw_tpu" / "models" / "checkpoints" / "htdemucs_tiny"
+
+
+@pytest.mark.parametrize("call", [
+    lambda: isolate_vocal(np.zeros((2, 4096), np.float32), SR,
+                          device="cpu"),
+    lambda: warmup_htdemucs((180.0,), device="cpu")],
+    ids=["isolate_vocal", "warmup_htdemucs"])
+def test_orbax_checkpoint_names_the_converter(call):
+    """An orbax directory configured as the htdemucs checkpoint: the JAX
+    package would run the network on it, so the port raises (it does not
+    fall back to the DSP separator), naming the script that converts it."""
+    with mock.patch.dict(os.environ, {"AMW_HTDEMUCS_CKPT": str(ORBAX_CKPT)}):
+        with pytest.raises(ValueError, match=re.escape(
+                "scripts/convert_htdemucs_port.py")) as info:
+            call()
+    assert str(ORBAX_CKPT) in str(info.value)
+    assert (ROOT / "scripts" / "convert_htdemucs_port.py").is_file()
 
 
 def test_v2_job_docstring_names_an_existing_runtime_module():

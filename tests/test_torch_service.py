@@ -615,3 +615,38 @@ def test_routes_cover_the_jax_services_own(apps):
             tmp)
         jroutes -= routes(tmp)
     assert jroutes <= routes(tapp), sorted(jroutes - routes(tapp))
+
+
+def test_isolate_vocal_runs_the_network_from_the_database(apps):
+    """``/api/v2/isolate-vocal`` with ``htdemucs_checkpoint = bundled`` set
+    in each package's database: both services separate with the network
+    (each on its own copy of the bundled checkpoint); the float32 WAVs
+    within -90 dBFS."""
+    from amw_tpu_torch.models import vocal as tvo
+
+    async def fn(jc, tc):
+        fields = {"file": ("t.wav", _clip_bytes(seed=7))}
+        for store in (jstore, tstore):
+            store.set_setting("vocal_isolation_enabled", "true")
+        try:
+            rt = await tc.post("/api/v2/isolate-vocal", data=_form(fields))
+            dsp, _ = wav.read_wav(await rt.read())
+            for store in (jstore, tstore):
+                store.set_setting("htdemucs_checkpoint", "bundled")
+            rj, rt = await _post_both(jc, tc, "/api/v2/isolate-vocal",
+                                      fields)
+            assert rj.status == rt.status == 200, await rt.text()
+            got, want = await rt.read(), await rj.read()
+        finally:
+            for store in (jstore, tstore):
+                store.set_setting("vocal_isolation_enabled", "false")
+                store.set_setting("htdemucs_checkpoint", None)
+        assert got[:44] == want[:44] and len(got) == len(want)
+        a, _ = wav.read_wav(got)
+        b, _ = wav.read_wav(want)
+        assert 20 * np.log10(max(float(np.max(np.abs(a - b))),
+                                 1e-30)) <= BAR_DBFS
+        assert float(np.max(np.abs(a - dsp))) > 0.01  # not the DSP path
+        assert any(k[0] == tvo.BUNDLED for k in tvo._ht_cache)
+
+    both(apps, fn)
