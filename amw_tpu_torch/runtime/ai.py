@@ -7,11 +7,10 @@ back to its deterministic rule engine exactly like the reference
 a plain aiohttp-less ``urllib`` JSON call (synchronous; callers run it in a
 thread).  Per-tier daily limits: free 5 / pro 50 / studio unlimited.
 
-The port's copy of ``amw_tpu/runtime/ai.py``; the LLM client is the JAX
-package's for the OpenAI wire (an admin-stored key, the ``openai`` and
-``deepseek`` backends).  The ``anthropic`` backend's Messages-API wire is
-not ported yet: with that backend and its key configured the client
-raises ``NotImplementedError``.
+The port's copy of ``amw_tpu/runtime/ai.py`` with both wires of the LLM
+client: the OpenAI wire (an admin-stored key, the ``openai`` and
+``deepseek`` backends) and the ``anthropic`` backend's Messages API, with
+the same URLs, headers, bodies and reply parsing.
 """
 
 from __future__ import annotations
@@ -61,13 +60,14 @@ def reset_ai_usage() -> None:
 def _llm_config():
     """Admin-stored key first (settings store), then env settings per the
     reference's backend selection (config.py:47-56: openai | deepseek |
-    anthropic).  openai/deepseek share the OpenAI wire protocol; the
-    anthropic backend's wire is not ported."""
+    anthropic).  openai/deepseek share the OpenAI wire protocol
+    (``wire='openai'``); anthropic uses the Messages API (``wire='anthropic'``)."""
     from .config import settings
 
     key = settings_store.get_setting_str("ai_api_key", None)
     if key:
         return {
+            "wire": "openai",
             "key": key,
             "base": settings_store.get_setting_str(
                 "ai_api_base",
@@ -77,17 +77,22 @@ def _llm_config():
         }
     backend = (settings.ai_backend or "openai").lower()
     if backend == "deepseek" and settings.deepseek_api_key:
-        return {"key": settings.deepseek_api_key,
+        return {"wire": "openai",
+                "key": settings.deepseek_api_key,
                 "base": settings.deepseek_base_url.rstrip("/") + "/v1"
                 if not settings.deepseek_base_url.endswith("/v1")
                 else settings.deepseek_base_url,
                 "model": settings.deepseek_model}
     if backend == "anthropic" and settings.anthropic_api_key:
-        raise NotImplementedError(
-            "the anthropic backend's Messages-API client "
-            "(amw_tpu/runtime/ai.py) is not ported yet; see ROADMAP.md")
+        return {"wire": "anthropic",
+                "key": settings.anthropic_api_key,
+                "base": "https://api.anthropic.com/v1",
+                "model": settings_store.get_setting_str(
+                    "ai_model", "claude-3-5-haiku-latest")
+                or "claude-3-5-haiku-latest"}
     if settings.openai_api_key:
-        return {"key": settings.openai_api_key,
+        return {"wire": "openai",
+                "key": settings.openai_api_key,
                 "base": "https://api.openai.com/v1",
                 "model": settings_store.get_setting_str(
                     "ai_model", "gpt-4o-mini") or "gpt-4o-mini"}
@@ -96,6 +101,26 @@ def _llm_config():
 
 def _llm_request(conf: dict, messages: list[dict], max_tokens: int,
                  json_mode: bool) -> urllib.request.Request:
+    if conf.get("wire") == "anthropic":
+        # Anthropic Messages API: system prompt is a top-level field, JSON
+        # mode is requested via instruction (no response_format parameter).
+        system = "\n".join(m["content"] for m in messages
+                           if m.get("role") == "system")
+        turns = [m for m in messages if m.get("role") != "system"]
+        if json_mode:
+            system = (system + "\nRespond with a single JSON object and "
+                      "nothing else.").strip()
+        body = {"model": conf["model"], "max_tokens": max_tokens,
+                "messages": turns}
+        if system:
+            body["system"] = system
+        return urllib.request.Request(
+            conf["base"].rstrip("/") + "/messages",
+            data=json.dumps(body).encode(),
+            headers={"x-api-key": conf["key"],
+                     "anthropic-version": "2023-06-01",
+                     "Content-Type": "application/json"},
+        )
     body = {"model": conf["model"], "messages": messages,
             "max_tokens": max_tokens}
     if json_mode:
@@ -117,6 +142,10 @@ def llm_chat(messages: list[dict], max_tokens: int = 300,
     try:
         with urllib.request.urlopen(req, timeout=60) as resp:
             data = json.loads(resp.read())
+        if conf.get("wire") == "anthropic":
+            parts = [b.get("text", "") for b in data.get("content", [])
+                     if b.get("type") == "text"]
+            return "".join(parts).strip()
         return (data["choices"][0]["message"]["content"] or "").strip()
     except Exception:  # noqa: BLE001
         return None

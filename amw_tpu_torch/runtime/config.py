@@ -1,13 +1,39 @@
-"""Settings of the serving engine and the HTTP service (the part of
-``amw_tpu/runtime/config.py`` that the port's runtime reads).
+"""Settings of the serving engine and the HTTP service (the port's copy
+of ``amw_tpu/runtime/config.py``).
 
 The same field names and defaults as the JAX package's, read from the
 environment with the reference's ``MAGIC_MASTER_`` prefix or the ``AMW_``
 alias, so that a deployment's environment means the same to both
-packages.  Only the fields the port's modules read are here; those of the
-modules not ported (accounts, admin, payments, the AI chat, the bots,
-mail, the public info routes) come with them.  ``settings_store`` layers
-the database's overrides over these defaults.
+packages.  ``settings_store`` layers the database's overrides over these
+defaults.
+
+Left out, and ignored where a deployment's environment sets them:
+
+- the serving mesh and the multi-process fields ``engine_mesh``,
+  ``engine_coordinator``, ``engine_num_processes``, ``engine_process_id``,
+  ``engine_sp_threshold_sec`` and ``engine_sp_quantize_sec``: the port's
+  engine serves on one GPU, and the time-sharded path
+  (``amw_tpu/parallel/timeshard.py``) is not ported;
+- ``compilation_cache_dir``: the directory of XLA's persistent
+  compilation cache, which the port has no counterpart of;
+- fields that no code of either package reads: ``ai_limit_free``,
+  ``ai_limit_pro`` and ``ai_limit_studio`` (the AI routes' daily limits
+  are ``ai.TIER_DAILY_LIMITS``), ``ai_prompt_report``,
+  ``ai_prompt_nl_config`` and ``ai_prompt_chat`` (only the recommender's
+  prompt has an override), ``cors_origins`` (the service sets no CORS
+  headers), ``yookassa_secret_key`` and ``yookassa_return_url`` (payment
+  creation calls no payment API; the return URL comes with the request),
+  ``user_bot_token`` and ``user_bot_webhook_secret`` (the user bot's token
+  is ``MAGIC_MASTER_``/``AMW_TELEGRAM_BOT_TOKEN``, see ``bot.bot_token``),
+  ``alert_monitoring_enabled`` and ``alert_throttle_minutes``,
+  ``demucs_model`` (the separator reads ``htdemucs_checkpoint``), and
+  ``max_upload_mb``, ``allowed_extensions`` and ``temp_dir`` (uploads are
+  held to the per-format and per-tier limits above).
+
+Also left out, but not ignored: ``mastering_trace`` and
+``mastering_trace_lufs_stages``, which ``utils/trace.py`` reads from the
+environment itself, and ``admin_email`` and ``admin_password``, which
+``admin_routes.ensure_initial_admin`` reads so, both as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,7 +90,10 @@ class Settings:
     batch_max_files: int = 10
 
     # Feature flags.
+    feature_ai_enabled: bool = True
     feature_batch_enabled: bool = True
+    registration_enabled: bool = True
+    require_email_verify: bool = False
     maintenance_mode: bool = False
     vocal_isolation_enabled: bool = False
 
@@ -73,6 +102,7 @@ class Settings:
     jwt_expire_minutes: int = 60 * 24 * 7
     free_weekly_limit: int = 1
     auth_rate_per_minute: int = 10
+    lufs_tool_rate_per_hour: int = 20
     rate_limit_per_minute: int = 300
     # Comma-separated reverse-proxy IPs allowed to set X-Real-IP /
     # X-Forwarded-For; empty = trust loopback + RFC1918 only.
@@ -94,8 +124,12 @@ class Settings:
     engine_warmup_buckets: str = ""
     db_path: str = "amw_tpu.sqlite3"
 
-    # AI preset recommender: the LLM backend and keys (none: the rule
-    # engine answers).
+    # Referral rewards.
+    referral_reward_inviter_tokens: int = 3
+    referral_reward_invitee_tokens: int = 2
+
+    # AI agents: the LLM backend and keys (none: the rule engine answers),
+    # the recommender's prompt override.
     ai_backend: str = "openai"
     openai_api_key: str = ""
     anthropic_api_key: str = ""
@@ -104,12 +138,31 @@ class Settings:
     deepseek_model: str = "deepseek-chat"
     ai_prompt_recommend: str = ""
 
-    # Telegram: the admin notifier's bot and chat, the webhook secret.
+    # SMTP transactional mail (runtime/mailer.py).
+    smtp_host: str = ""
+    smtp_port: int = 587
+    smtp_user: str = ""
+    smtp_password: str = ""
+    smtp_from: str = "noreply@localhost"
+    smtp_use_tls: bool = True
+
+    # YooKassa payments (runtime/payments.py).
+    yookassa_shop_id: str = ""
+    yookassa_webhook_ip_whitelist: str = ""
+    yookassa_webhook_secret: str = ""
+
+    # Telegram: the admin notifier's bot and chat, the webhook secret; the
+    # user bot's settings (runtime/bot.py).
     telegram_bot_token: str = ""
     telegram_admin_chat_id: str = ""
     telegram_bot_webhook_secret: str = ""
+    user_bot_channel_id: str = ""
+    user_bot_telegram_url: str = ""
     public_base_url: str = ""
+
+    # Extensions / analytics.
     clarity_project_id: str = ""
+    community_presets_extra: str = ""
 
     # Monitoring alerts and anomaly thresholds.
     alert_queue_threshold: int = 0

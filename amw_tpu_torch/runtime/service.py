@@ -7,27 +7,28 @@ The mastering API (v1 + v2 + batch), job status/SSE/result/preview/share,
 the analysis endpoints, reference match, upscale, vocal isolation, auto
 mastering, health/metrics/version, presets/styles/chain config and the
 static frontend, with the JAX package's route names, response shapes and
-status codes.  Jobs run on ``MasteringEngine`` (one GPU, micro-batched)
-under the job semaphores of ``runtime/jobs.py``; the analysis handlers
-and the vocal separator run on the engine's device, so an app made with
-``MasteringEngine(device="cpu")`` runs wholly on the CPU and the default
-one on ``cuda`` (raising without a GPU).
-
-Not ported: the accounts, admin, payments, AI chat and public info routes
-(``amw_tpu/runtime/auth_routes.py``, ``admin_routes.py``, ``payments.py``,
-``ai_routes.py``, ``misc_routes.py``) and the Telegram bots
-(``amw_tpu/runtime/bot.py``).  Their webhooks answer as the JAX service's
-do with no bot token; where a bot token or an initial admin is
-configured, :func:`create_app` raises ``NotImplementedError``.  The JAX
-service's background render of the landing page's demo clips
-(``scripts/gen_demo_assets.py``, which runs the JAX package) is left out.
+status codes; the routers of ``runtime/auth_routes.py`` (accounts),
+``ai_routes.py``, ``admin_routes.py`` (and the initial admin from
+``MAGIC_MASTER_``/``AMW_ADMIN_EMAIL`` and ``_PASSWORD``), ``payments.py``
+and ``misc_routes.py`` (public info, referrals, the blog), registered in
+the JAX service's order; the Telegram user bot and the admin/notify bot
+(``runtime/bot.py``) on their webhooks where their tokens are set.  Jobs
+run on ``MasteringEngine`` (one GPU, micro-batched) under the job
+semaphores of ``runtime/jobs.py``; the analysis handlers, the AI routes'
+analysis, the vocal separator and the user bot run on the engine's device,
+so an app made with ``MasteringEngine(device="cpu")`` runs wholly on the
+CPU and the default one on ``cuda`` (raising without a GPU).  At start,
+where the landing page's demo clips are missing, a thread renders them on
+the engine's device (``amw_tpu_torch/scripts/gen_demo_assets.py``), where
+the JAX service runs its own script in a subprocess.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
-import os
+import logging
+import threading
 import time
 import uuid
 
@@ -43,7 +44,8 @@ from ..utils.audio_io import ffmpeg_available, load_audio_from_bytes
 from ..utils.metadata import embed_branding
 from ..utils.trace import (TraceContext, trace_job_done, trace_job_error,
                            trace_job_start)
-from . import db, deps, jobs, settings_store, users
+from . import (admin_routes, ai_routes, auth_routes, db, deps, jobs,
+               misc_routes, payments, settings_store, users)
 from .config import settings
 from .engine import MasteringEngine, get_engine
 
@@ -246,18 +248,43 @@ async def _run_job_v2(app, job_id: str, kwargs: dict):
 
 
 async def h_bot_webhook(request):
-    # the JAX service's answer with no bot token (create_app refuses one)
-    raise _err(404, "Bot is not configured")
+    bot = request.app.get("bot")
+    if bot is None:
+        raise _err(404, "Bot is not configured")
+    try:
+        update = await request.json()
+    except Exception:  # noqa: BLE001
+        raise _err(400, "Invalid JSON")
+    _spawn_job(request.app, bot.handle_update(update))
+    return web.json_response({"ok": True})
 
 
 async def h_notify_bot_webhook(request):
-    """Admin/notify bot webhook: the secret-token check, then the JAX
-    service's answer with no notify-bot token (create_app refuses one)."""
+    """Admin/notify bot webhook (reference: bot/notify_webhook_route.py:15):
+    optional secret-token check, then feed the update to the notify bot."""
     secret = (settings.telegram_bot_webhook_secret or "").strip()
     if secret and request.headers.get(
             "X-Telegram-Bot-Api-Secret-Token") != secret:
         raise _err(403, "Invalid secret")
-    raise _err(503, "Notify bot not configured")
+    nbot = request.app.get("notify_bot")
+    if nbot is None:
+        raise _err(503, "Notify bot not configured")
+    try:
+        update = await request.json()
+    except Exception:  # noqa: BLE001
+        raise _err(400, "Invalid JSON")
+
+    async def _bg():
+        # Off the event loop: the notify bot's transport is blocking
+        # urllib, and /broadcast loops over every linked user.
+        try:
+            await asyncio.to_thread(nbot.handle_update_sync, update)
+        except Exception:  # noqa: BLE001 — mirror the reference: log only
+            logging.getLogger("amw_tpu_torch.bot").exception(
+                "notify bot update failed")
+
+    _spawn_job(request.app, _bg())
+    return web.json_response({"ok": True})
 
 
 async def h_health(request):
@@ -795,29 +822,29 @@ async def h_locale(request):
     return web.json_response({"locale": loc, "supported": ["en", "ru"]})
 
 
-def _env_setting(name: str) -> str:
-    return (os.environ.get("MAGIC_MASTER_" + name)
-            or os.environ.get("AMW_" + name) or "").strip()
+def start_demo_render(device) -> threading.Thread | None:
+    """Render the landing page's A/B demo clips on ``device`` in a thread
+    where ``edm_mastered.wav`` is missing from
+    ``gen_demo_assets.DEMO_DIR`` (they are not committed blobs).  Returns
+    the render's thread, or ``None`` where the clips are there."""
+    from ..scripts import gen_demo_assets
 
+    if (gen_demo_assets.DEMO_DIR / "edm_mastered.wav").is_file():
+        return None
 
-def _refuse_unported_configuration() -> None:
-    """What the JAX service would start here and the port lacks: the
-    Telegram bots where a bot token is set, the initial admin where its
-    email and password are set."""
-    if _env_setting("TELEGRAM_BOT_TOKEN") or (
-            settings.telegram_bot_token or "").strip():
-        raise NotImplementedError(
-            "a Telegram bot token is configured, and the Telegram bots "
-            "(amw_tpu/runtime/bot.py) are not ported yet; see ROADMAP.md")
-    if _env_setting("ADMIN_EMAIL") and _env_setting("ADMIN_PASSWORD"):
-        raise NotImplementedError(
-            "an initial admin is configured, and the admin routes that "
-            "create it (amw_tpu/runtime/admin_routes.py) are not ported "
-            "yet; see ROADMAP.md")
+    def _gen():
+        try:
+            gen_demo_assets.render(device=device)
+        except Exception:  # noqa: BLE001 — demos are cosmetic
+            logging.getLogger("amw_tpu_torch.service").exception(
+                "demo clip render failed")
+
+    th = threading.Thread(target=_gen, daemon=True, name="demo-assets")
+    th.start()
+    return th
 
 
 def create_app(engine: MasteringEngine | None = None) -> web.Application:
-    _refuse_unported_configuration()
     db.create_tables()
     users.ensure_schema()
     jobs.restore_from_db()
@@ -826,8 +853,21 @@ def create_app(engine: MasteringEngine | None = None) -> web.Application:
     app["engine"] = engine or get_engine()
     app["job_tasks"] = set()
     app.on_cleanup.append(_cancel_jobs_on_cleanup)
+    auth_routes.register_routes(app)
+    ai_routes.register_routes(app)
+    admin_routes.register_routes(app)
+    payments.register_routes(app)
+    misc_routes.register_routes(app)
+    admin_routes.ensure_initial_admin()
     app.router.add_post("/bot/webhook", h_bot_webhook)
     app.router.add_post("/bot/notify/webhook", h_notify_bot_webhook)
+    from . import bot as bot_mod
+
+    # the user bot masters on this app's engine (runtime/bot.py)
+    app["bot"] = (bot_mod.Bot(engine=app["engine"]) if bot_mod.bot_token()
+                  else None)
+    app["notify_bot"] = (bot_mod.NotifyBot()
+                         if bot_mod.notify_bot_token() else None)
 
     async def _start_background(app):
         from .anomaly import anomaly_loop
@@ -835,12 +875,14 @@ def create_app(engine: MasteringEngine | None = None) -> web.Application:
         app["anomaly_task"] = asyncio.create_task(anomaly_loop())
         raw = settings.engine_warmup_buckets.strip()
         if raw:
-            import threading
-
             buckets = [float(s) for s in raw.split(",") if s.strip()]
             threading.Thread(
                 target=app["engine"].warmup, args=(buckets,),
                 daemon=True, name="engine-warmup").start()
+        # Landing A/B demo clips are deterministic self-mastered renders
+        # (amw_tpu_torch/scripts/gen_demo_assets.py), rendered on the
+        # engine's device where the deploy lacks them.
+        app["demo_render"] = start_demo_render(app["engine"].device)
 
     async def _stop_background(app):
         task = app.get("anomaly_task")

@@ -167,7 +167,26 @@ Phases, each printing JSON lines:
              branding and download); then analysis and the LUFS tool
              (against the calls on the card), reference match, upscale to
              48 kHz, vocal isolation (the settings store's override on)
-             and auto mastering once each;
+             and auto mastering once each; with the initial admin
+             configured and registration and the AI routes on, a line
+             for each of (e) the landing page's demo renderer, which the
+             service starts at its start on the card because the clips
+             are missing (their directory a new temporary one): both 8 s
+             clips, launches those of two default-chain runs, each WAV
+             within the v2 loudness window and within one int16 step of
+             the card's and (edm) the CPU's render; (b) a registered
+             user's bearer ``POST /api/v2/master`` of one 180 s stereo
+             upload within 2.5 LSB and 0.01 LU of ``embed_branding`` of
+             ``master_v2_bytes``, one v2 run's launches, the record in
+             the user's history; (c) ``/api/ai/recommend`` of it, the
+             recommendation of ``analyze`` called on the card, its
+             analysis within 0.01, the launches of kernels 4, 8 and 5
+             those of the analyze phase's fused 180 s run; (d) the user
+             bot (``Bot(engine=eng)``, a fake transport) mastering it as
+             a WAV message, the document (not the failure text) within
+             2.5 LSB and 0.01 LU of ``master_v2_bytes``, one v2 run's
+             launches; (a) the admin's ``/api/admin/stats`` counting the
+             phase's 31 masterings;
 11. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
@@ -194,6 +213,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import aiohttp
 import numpy as np
@@ -204,7 +224,8 @@ from aiohttp import web
 from amw_tpu_torch import GraphSpec
 from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
                                      MULTIBAND_ATTACK_RELEASE_MS,
-                                     MULTIBAND_CONFIG, STYLE_CONFIGS)
+                                     MULTIBAND_CONFIG, PRESET_LUFS,
+                                     STYLE_CONFIGS)
 from amw_tpu_torch.models import (analyze, build_v1_pipeline,
                                   build_v2_job_graph, default_chain_config,
                                   lufs_analyze_tool)
@@ -224,12 +245,13 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         spectral_envelope)
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
 from amw_tpu_torch.runtime import ai
+from amw_tpu_torch.runtime.bot import Bot
 from amw_tpu_torch.runtime import db as service_db
 from amw_tpu_torch.runtime import jobs as service_jobs
 from amw_tpu_torch.runtime import progress, service, settings_store
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
-from amw_tpu_torch.scripts import htdemucs_gate
+from amw_tpu_torch.scripts import gen_demo_assets, htdemucs_gate
 from amw_tpu_torch.scripts.ab_bccb import kernel_ms
 from amw_tpu_torch.utils import wav
 from amw_tpu_torch.utils.metadata import embed_branding
@@ -2996,7 +3018,7 @@ async def service_tools(session, base, dev, eng, x, data) -> dict:
     return out
 
 
-async def service_requests(base: str, dev, eng) -> dict:
+async def service_requests(base: str, dev, eng, analyze_launches) -> dict:
     reqs = engine_requests()
     stereo = [r for r in reqs if r["kind"] == "stereo"]
     timeout = aiohttp.ClientTimeout(total=900)
@@ -3067,15 +3089,267 @@ async def service_requests(base: str, dev, eng) -> dict:
         x, _ = wav.read_wav(stereo[0]["data"])
         tools = await service_tools(session, base, dev, eng, x,
                                     stereo[0]["data"])
+
+        # 4. the accounts, the AI routes and the user bot on one upload,
+        # then the admin's view of the phase's jobs
+        hdr, user = await service_user_master(session, base, eng, stereo[0])
+        emit({"phase": "service", **user})
+        line = await service_ai(session, base, dev, hdr, stereo[0],
+                                analyze_launches)
+        emit({"phase": "service", **line})
+        line = await service_bot(eng, stereo[0])
+        emit({"phase": "service", **line})
+        jobs_posted = len(stereo) + 2 * len(reqs) + 2  # + auto, + the user's
+        line = await service_admin(session, base, jobs_posted)
+        emit({"phase": "service", **line})
     return {"batch": batch_line, "bursts": bursts, "tools": tools}
 
 
-def phase_service(dev, eng) -> None:
+# the accounts of the service phase: the initial admin (its environment)
+# and a user who registers
+SERVICE_ADMIN = ("admin@example.com", "smoke-admin-pw")
+SERVICE_USER = ("user@example.com", "smoke-user-pw")
+BOT_PRESET = "spotify"
+
+
+class FakeTelegram:
+    """The user bot's Telegram transport, faked: serves the upload,
+    records the messages and documents the bot sends."""
+
+    def __init__(self, upload: bytes):
+        self.upload, self.sent, self.docs = upload, [], []
+
+    def api(self, method, payload):
+        self.sent.append((method, payload))
+        return {"ok": True, "result": {}}
+
+    def download(self, file_id):
+        return self.upload
+
+    def send_document(self, chat_id, filename, blob, caption=""):
+        self.docs.append((chat_id, filename, blob, caption))
+
+
+def same_master(label: str, blob: bytes, want: bytes, after: float,
+                want_after: float, n: int) -> tuple[float, float]:
+    """A mastered 16-bit WAV against the engine's direct answer: the same
+    shape, within ``WAV16_LSB`` (the TPDF draws differ), the loudness
+    within ``METER_LU``.  Returns (max LSB, loudness delta)."""
+    q = decode_int16(blob)
+    check(q.shape == (2, n), f"{label}: came back {q.shape}")
+    lsb = float(np.max(np.abs(q.astype(np.int32) - decode_int16(want))))
+    d_lu = abs(after - want_after)
+    check(lsb <= WAV16_LSB and d_lu <= METER_LU,
+          f"{label}: {lsb} LSB, {d_lu} LU from master_v2_bytes")
+    return lsb, d_lu
+
+
+def demo_expected() -> dict:
+    """Each kernel's launches on the demo renderer's two clips: the default
+    chain at the clips' length (the staged FFT from ~5.8 s), which the v2
+    job without a pro stage runs."""
+    n = int(gen_demo_assets.DUR * gen_demo_assets.SR)
+    return {k: 2 * v for k, v in job_expected(
+        n, 2, gen_demo_assets.STYLE, pro={}).items()}
+
+
+def service_demo(app, dev, t0: float) -> dict:
+    """(e) The demo renderer the service started on its engine's device
+    (the clips were missing): its launches from the app's start, the four
+    WAVs, each mastered clip within the v2 loudness window, finite on the
+    card, and the edm clip within one int16 step of the CPU's render."""
+    th = app["demo_render"]
+    check(th is not None, "service demo: the service started no render")
+    th.join(600)
+    check(not th.is_alive(), "service demo: the render hung")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect = demo_expected()
+    check(launches == expect, f"service demo: launches {launches}, "
+          f"expected {expect}")
+    staged = sum(v for k, v in launches.items() if k.startswith("fft_"))
+    check(staged > 0, f"service demo: no staged FFT launch in {launches}")
+    out = {"check": "e_demo_render", "wall_s": wall, "launches": launches,
+           "staged_fft_launches": staged, "clips": {}}
+    for name, x in gen_demo_assets.source_clips():
+        files = {tag: decode_int16((gen_demo_assets.DEMO_DIR
+                                    / f"{name}_{tag}.wav").read_bytes())
+                 for tag in ("original", "mastered")}
+        check(np.array_equal(files["original"], gen_demo_assets.to_int16(x)),
+              f"service demo: {name}_original.wav")
+        y = gen_demo_assets.master(x, dev)
+        check(bool(np.all(np.isfinite(y))) and y.shape == x.shape,
+              f"service demo: {name} not finite or {y.shape}")
+        q = files["mastered"].astype(np.int32)
+        err = float(np.max(np.abs(q - gen_demo_assets.to_int16(y))))
+        check(err <= 1, f"service demo: {name}_mastered.wav {err} steps "
+              "from the card's render")
+        lufs = float(track_lufs((q / 32768.0).astype(np.float32)[None],
+                                np.array([x.shape[-1]]))[0])
+        check(TARGET_LUFS - V2_LU_BELOW <= lufs <= TARGET_LUFS + 1.0,
+              f"service demo: {name} at {lufs} LUFS")
+        clip = {"lufs": lufs, "peak": float(np.max(np.abs(y)))}
+        if name == "edm":
+            cpu = gen_demo_assets.to_int16(gen_demo_assets.master(x, "cpu"))
+            clip["max_steps_vs_cpu"] = float(np.max(np.abs(q - cpu)))
+            check(clip["max_steps_vs_cpu"] <= 1,
+                  f"service demo: edm {clip['max_steps_vs_cpu']} steps "
+                  "from the CPU's render")
+        out["clips"][name] = clip
+    return out
+
+
+async def service_user_master(session, base, eng, upload: dict) -> tuple:
+    """(b) A user registers and logs in; a bearer-authenticated ``POST
+    /api/v2/master`` of one 180 s stereo upload against ``embed_branding``
+    of ``master_v2_bytes``; its record in the user's history."""
+    t0 = time.perf_counter()
+    await http_json(session, "POST", f"{base}/api/auth/register", json={
+        "email": SERVICE_USER[0], "password": SERVICE_USER[1]})
+    login = await http_json(session, "POST", f"{base}/api/auth/login",
+                            json={"email": SERVICE_USER[0],
+                                  "password": SERVICE_USER[1]})
+    hdr = {"Authorization": f"Bearer {login['access_token']}"}
+    me = await http_json(session, "GET", f"{base}/api/auth/me", headers=hdr)
+    check(me["email"] == SERVICE_USER[0] and me["tier"] == "pro",
+          f"service user: {me}")
+    reset_counts()
+    t1 = time.perf_counter()
+    resp = await http_json(session, "POST", f"{base}/api/v2/master",
+                           data=form({"file": ("t.wav", upload["data"])}),
+                           headers=hdr)
+    st = await wait_done(session, base, resp["job_id"])
+    blob, _ = await http_bytes(session,
+                               f"{base}/api/master/result/{resp['job_id']}")
+    master_s = time.perf_counter() - t1
+    launches = read_counts()
+    expect = job_expected(upload["n"], 2, "standard", pro={})
+    check(launches == expect, f"service user: launches {launches}, "
+          f"expected {expect}")
+    direct, _ = run_burst(eng, [{"data": upload["data"],
+                                 "kw": {"target_lufs": TARGET_LUFS}}])
+    res = direct[0][0]
+    want = embed_branding(res["bytes"], "wav")
+    check(len(blob) == len(want) and blob[:44] == want[:44],
+          "service user: header or length")
+    lsb, d_lu = same_master("service user", blob, want, st["after_lufs"],
+                            res["after_lufs"], upload["n"])
+    hist = await http_json(session, "GET", f"{base}/api/auth/history",
+                           headers=hdr)
+    items = hist["items"]
+    check(hist["count"] == 1 and items[0]["filename"] == "t.wav"
+          and abs(items[0]["after_lufs"] - res["after_lufs"]) <= METER_LU,
+          f"service user: history {hist}")
+    return hdr, {"check": "b_user_master", "wall_s":
+                 time.perf_counter() - t0, "master_s": master_s,
+                 "launches": launches, "max_lsb": lsb, "after_lu_delta":
+                 d_lu, "history_records": hist["count"]}
+
+
+async def service_ai(session, base, dev, hdr, upload: dict,
+                     analyze_launches: dict) -> dict:
+    """(c) ``/api/ai/recommend`` of the upload: the recommendation of the
+    port's ``analyze`` called on the card, its analysis within 0.01; the
+    analysis graph's launches those of the analyze phase's fused 180 s
+    run."""
+    x, _ = wav.read_wav(upload["data"])
+    reset_counts()
+    t0 = time.perf_counter()
+    body = await http_json(session, "POST", f"{base}/api/ai/recommend",
+                           data=form({"file": ("t.wav", upload["data"])}),
+                           headers=hdr)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect = analyze_expected(_bucket_for(SR, x.shape[-1]), 2, split=False)
+    check(launches == expect == analyze_launches,
+          f"service ai: launches {launches}, expected {expect}, the "
+          f"analyze phase's {analyze_launches}")
+    a = json.loads(json.dumps(analyze(x, SR, True, device=dev)))
+    rec = ai.recommend_preset(a)
+    got = dict(body)
+    same_dict(got.pop("analysis"), {k: a.get(k) for k in (
+        "lufs", "peak_dbfs", "duration_sec", "channels")}, "service ai")
+    check(got == rec, f"service ai: {got} against {rec}")
+    return {"check": "c_ai_recommend", "wall_s": wall, "launches": launches,
+            "style": rec["style"], "target_lufs": rec["target_lufs"],
+            "source": rec["source"]}
+
+
+async def service_bot(eng, upload: dict) -> dict:
+    """(d) ``Bot(engine=eng)`` with a fake transport: an audio message of a
+    180 s stereo WAV and the preset; the document sent (not the failure
+    text) against ``master_v2_bytes``, the row recorded, the launches those
+    of one single-track v2 run."""
+    tg = FakeTelegram(upload["data"])
+    bot = Bot(api_call=tg.api, download=tg.download,
+              send_document=tg.send_document, engine=eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    await bot.handle_update({"message": {"chat": {"id": 7}, "document": {
+        "file_id": "f1", "file_name": "track.wav"}}})
+    await bot.handle_update({"callback_query": {
+        "message": {"chat": {"id": 7}}, "data": f"preset:{BOT_PRESET}"}})
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    texts = [p.get("text", "") for _, p in tg.sent]
+    check(len(tg.docs) == 1 and not any("failed" in s for s in texts),
+          f"service bot: {len(tg.docs)} documents, messages {texts}")
+    expect = job_expected(upload["n"], 2, "standard", pro={})
+    check(launches == expect, f"service bot: launches {launches}, "
+          f"expected {expect}")
+    res = eng.master_v2_bytes(upload["data"], "track.wav",
+                              target_lufs=PRESET_LUFS[BOT_PRESET],
+                              out_format="wav", style="standard")
+    with service_db.connect() as c:
+        rows = [dict(r) for r in c.execute(
+            "SELECT * FROM mastering_records WHERE source='telegram'")]
+    check(len(rows) == 1 and rows[0]["filename"] == "track.wav",
+          f"service bot: rows {rows}")
+    lsb, d_lu = same_master("service bot", tg.docs[0][2], res["bytes"],
+                            rows[0]["after_lufs"], res["after_lufs"],
+                            upload["n"])
+    return {"check": "d_bot_master", "wall_s": wall, "launches": launches,
+            "document": tg.docs[0][1], "caption": tg.docs[0][3],
+            "max_lsb": lsb, "after_lu_delta": d_lu}
+
+
+async def service_admin(session, base, jobs_posted: int) -> dict:
+    """(a) The initial admin logs in; ``/api/admin/stats`` counts the
+    phase's masterings (its jobs over HTTP and the bot's), none errored,
+    none left in the job store; anonymous calls are refused."""
+    t0 = time.perf_counter()
+    async with session.get(f"{base}/api/admin/stats") as r:
+        check(r.status == 401, f"service admin: anonymous {r.status}")
+    login = await http_json(session, "POST", f"{base}/api/auth/login",
+                            json={"email": SERVICE_ADMIN[0],
+                                  "password": SERVICE_ADMIN[1]})
+    check(login["is_admin"] is True and login["tier"] == "studio",
+          f"service admin: {login}")
+    stats = await http_json(session, "GET", f"{base}/api/admin/stats",
+                            headers={"Authorization":
+                                     f"Bearer {login['access_token']}"})
+    # every job's result was fetched, which takes it out of the job store
+    check(stats["masterings_total"] == stats["masterings_24h"]
+          == jobs_posted + 1 and stats["job_errors_24h"] == 0
+          and stats["jobs_total"] == stats["jobs_running"] == 0
+          and stats["users_total"] == 2,
+          f"service admin: stats {stats}, {jobs_posted} jobs posted")
+    return {"check": "a_admin_stats", "wall_s": time.perf_counter() - t0,
+            "jobs_posted": jobs_posted,
+            **{k: stats[k] for k in ("masterings_total", "masterings_24h",
+                                     "job_errors_24h", "jobs_total",
+                                     "users_total")}}
+
+
+def phase_service(dev, eng, analyze_launches: dict) -> None:
     """The HTTP service (``runtime/service.create_app``) on the engine of
     the engine phase (its graphs warm), served over real sockets on
-    127.0.0.1 with a temporary database and the anonymous weekly limit
-    off (as tests/test_service.py runs it); the smoke, one client, also
-    lifts the per-IP request limit.  ``GET /api/health``, ``/api/version``,
+    127.0.0.1 with a temporary database, the initial admin configured,
+    registration and the AI routes on, and the anonymous weekly limit off
+    (as tests/test_service.py runs it); the smoke, one client, also lifts
+    the per-IP request limit.  The landing page's demo clips are missing
+    (their directory a new temporary one), so the service renders them at
+    start on the card: check (e), its launches counted from the start.  ``GET /api/health``, ``/api/version``,
     ``/api/metrics``; ``POST /api/v2/batch`` of the 8 stereo uploads at the
     defaults (one job on its SSE stream, the others polled, every result
     within 2.5 LSB and 0.01 LU of ``embed_branding`` of
@@ -3087,26 +3361,54 @@ def phase_service(dev, eng) -> None:
     batches, each stereo job's split); then analysis, the LUFS tool,
     reference match, upscale, vocal isolation (the settings store's
     override on) and auto mastering once each against the calls they
-    make."""
+    make; then (b) a user's bearer-authenticated master and history, (c)
+    the AI recommender, (d) the user bot (``Bot(engine=eng)``, a fake
+    transport) on one 180 s upload, each against the port's direct call
+    with its launches, and (a) the admin's stats of the phase's jobs."""
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="amw_service_")
     saved = (runtime_settings.mastering_debug_skip_limits,
-             runtime_settings.rate_limit_per_minute, service.embed_branding)
+             runtime_settings.rate_limit_per_minute, service.embed_branding,
+             runtime_settings.registration_enabled,
+             runtime_settings.feature_ai_enabled, gen_demo_assets.DEMO_DIR)
+    saved_env = {k: os.environ.get(k) for k in ("AMW_ADMIN_EMAIL",
+                                                "AMW_ADMIN_PASSWORD")}
     # the last phase to use the port's database: its path is not restored
     service_db.set_db_path(os.path.join(tmp, "service.sqlite3"))
     runtime_settings.mastering_debug_skip_limits = True
     runtime_settings.rate_limit_per_minute = 1 << 30
+    runtime_settings.registration_enabled = True
+    runtime_settings.feature_ai_enabled = True
+    os.environ["AMW_ADMIN_EMAIL"], os.environ["AMW_ADMIN_PASSWORD"] = \
+        SERVICE_ADMIN
+    gen_demo_assets.DEMO_DIR = Path(tmp) / "demos"
     service.embed_branding = timed_branding(eng)
     try:
-        with served(service.create_app(eng)) as base:
-            out = asyncio.run(service_requests(base, dev, eng))
+        app = service.create_app(eng)
+        torch.cuda.synchronize()
+        reset_counts()
+        t_start = time.perf_counter()
+        with served(app) as base:
+            demo = service_demo(app, dev, t_start)
+            emit({"phase": "service", **demo})
+            out = asyncio.run(service_requests(base, dev, eng,
+                                               analyze_launches))
     finally:
         service.embed_branding = saved[2]
         runtime_settings.rate_limit_per_minute = saved[1]
         runtime_settings.mastering_debug_skip_limits = saved[0]
+        runtime_settings.registration_enabled = saved[3]
+        runtime_settings.feature_ai_enabled = saved[4]
+        gen_demo_assets.DEMO_DIR = saved[5]
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         eng.calls = None
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "service", "http": True, **out,
+          "demo_staged_fft_launches": demo["staged_fft_launches"],
           "phase_s": time.perf_counter() - t_phase})
 
 
@@ -3222,7 +3524,7 @@ def main() -> None:
     try:
         phase_engine(dev, eng, graphs)
         del graphs
-        phase_service(dev, eng)
+        phase_service(dev, eng, an["analyze_180s"])
     finally:
         eng.close()
 

@@ -1,6 +1,7 @@
-"""What the port raises for an ``amw_tpu`` module it does not have yet,
-where a graph leaves a job to the engine, and for an htdemucs checkpoint
-in the JAX package's format (orbax), which it cannot read.
+"""What the port raises where a graph leaves a job to the engine, and for
+an htdemucs checkpoint in the JAX package's format (orbax), which it
+cannot read; and that the docstrings naming the JAX package's modules
+left out name files that exist.
 
 Every such ``NotImplementedError`` names the JAX package's module file
 (``amw_tpu/...py``) instead of a queue number of ROADMAP.md, so a
@@ -33,41 +34,11 @@ def _v2(pro):
     return lambda: build_v2_job_graph(SPEC, None, pro, device="cpu")
 
 
-def _service_with(env):
-    """The port's ``create_app`` where the environment configures what the
-    JAX service would start and the port lacks."""
-    from amw_tpu_torch.runtime.service import create_app
-
-    with mock.patch.dict(os.environ, env):
-        create_app()
-
-
-def _recommend_with_anthropic_backend():
-    """The AI recommender where the anthropic LLM backend is configured."""
-    import tempfile
-
-    from amw_tpu_torch.runtime import ai, config, db
-
-    with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.object(config.settings, "ai_backend", "anthropic"), \
-            mock.patch.object(config.settings, "anthropic_api_key", "k"):
-        db.set_db_path(os.path.join(tmp, "t.sqlite3"))
-        ai.recommend_preset({"lufs": -14.0})
-
-
 ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
 # case -> (trigger, amw_tpu module files named, what the message points at)
 CASES = {
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
                            ["amw_tpu/runtime/engine.py"], ENGINE_V2),
-    "service_bot_token": (lambda: _service_with(
-        {"AMW_TELEGRAM_BOT_TOKEN": "123:abc"}),
-        ["amw_tpu/runtime/bot.py"], "ROADMAP.md"),
-    "service_initial_admin": (lambda: _service_with(
-        {"AMW_ADMIN_EMAIL": "a@x.io", "AMW_ADMIN_PASSWORD": "pw"}),
-        ["amw_tpu/runtime/admin_routes.py"], "ROADMAP.md"),
-    "ai_anthropic_backend": (_recommend_with_anthropic_backend,
-                             ["amw_tpu/runtime/ai.py"], "ROADMAP.md"),
 }
 
 
@@ -137,11 +108,14 @@ def test_engine_docstring_names_the_unported_mesh_module():
 
 
 def test_service_docstring_names_existing_modules():
-    """The service's docstring names the JAX package's modules it leaves
-    out."""
+    """The service's docstring names the JAX package's service it ports and
+    the port's demo renderer, and lists no module as left out: the routers,
+    the bots and the demo render are ported."""
     from amw_tpu_torch.runtime import service
 
     named = re.findall(r"amw_tpu/[\w/]+\.py", service.__doc__)
-    assert {"amw_tpu/runtime/service.py", "amw_tpu/runtime/bot.py",
-            "amw_tpu/runtime/auth_routes.py"} <= set(named)
-    assert all((ROOT / p).is_file() for p in named)
+    assert named == ["amw_tpu/runtime/service.py"]
+    ported = re.findall(r"amw_tpu_torch/[\w/]+\.py", service.__doc__)
+    assert ported == ["amw_tpu_torch/scripts/gen_demo_assets.py"]
+    assert all((ROOT / p).is_file() for p in named + ported)
+    assert "not ported" not in service.__doc__.lower()

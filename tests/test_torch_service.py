@@ -22,15 +22,14 @@ and ids.
 """
 
 import asyncio
-import importlib
 import json
 import struct
 import tempfile
+from pathlib import Path
 
 import aiohttp
 import numpy as np
 import pytest
-from aiohttp import web
 from aiohttp.test_utils import TestClient, TestServer
 
 from amw_tpu.runtime import ai as jai
@@ -47,7 +46,9 @@ from amw_tpu_torch.runtime import deps as tdeps
 from amw_tpu_torch.runtime import settings_store as tstore
 from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.runtime.service import create_app as port_create_app
+from amw_tpu_torch.scripts import gen_demo_assets as tdemo
 from amw_tpu_torch.utils import wav
+from test_torch_service_auth import rendered_demo_dir
 
 SR = 8000
 SR_CLIP = 44100
@@ -85,8 +86,10 @@ def apps():
     tmp_t = tempfile.NamedTemporaryFile(suffix=".sqlite3")
     jdb.set_db_path(tmp_j.name)
     tdb.set_db_path(tmp_t.name)
-    with pytest.MonkeyPatch.context() as mp:
+    with pytest.MonkeyPatch.context() as mp, \
+            tempfile.TemporaryDirectory() as demos:
         mp.delenv("AMW_HTDEMUCS_CKPT", raising=False)
+        mp.setattr(tdemo, "DEMO_DIR", rendered_demo_dir(Path(demos)))
         for s in (jconfig.settings, tconfig.settings):
             mp.setattr(s, "mastering_debug_skip_limits", True)
         jeng = JaxEngine(micro_batch=False)
@@ -599,22 +602,17 @@ def test_bot_webhooks_match_jax(apps, monkeypatch):
 
 
 def test_routes_cover_the_jax_services_own(apps):
-    """Every route the JAX service registers itself (not through the
-    routers the port has not ported) is served by the port."""
+    """The port serves exactly the (method, route) pairs the JAX service
+    serves, its routers' included."""
     japp, tapp = apps()
 
     def routes(app):
         return {(r.method, r.resource.canonical) for r in app.router.routes()
                 if r.resource is not None}
 
-    jroutes = routes(japp)
-    for mod in ("auth_routes", "ai_routes", "admin_routes", "payments",
-                "misc_routes"):
-        tmp = web.Application()
-        importlib.import_module(f"amw_tpu.runtime.{mod}").register_routes(
-            tmp)
-        jroutes -= routes(tmp)
-    assert jroutes <= routes(tapp), sorted(jroutes - routes(tapp))
+    jroutes, troutes = routes(japp), routes(tapp)
+    assert jroutes == troutes, (sorted(jroutes - troutes),
+                                sorted(troutes - jroutes))
 
 
 def test_isolate_vocal_runs_the_network_from_the_database(apps):

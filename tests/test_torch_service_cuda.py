@@ -26,6 +26,7 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from amw_tpu_torch.runtime import config, db, jobs, service
 from amw_tpu_torch.runtime.engine import MasteringEngine
+from amw_tpu_torch.scripts import gen_demo_assets
 from amw_tpu_torch.utils import wav
 
 SR = 44100
@@ -36,10 +37,13 @@ WAV16_BAR = 2.5 / 32768
 @pytest.fixture
 def engines(tmp_path, monkeypatch):
     """A card engine and a CPU engine, the port on a temporary database,
-    the anonymous weekly limit off."""
+    the anonymous weekly limit off, the demo clips there (so that a served
+    app renders none)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     db.set_db_path(str(tmp_path / "t.sqlite3"))
+    (tmp_path / "edm_mastered.wav").write_bytes(b"")
+    monkeypatch.setattr(gen_demo_assets, "DEMO_DIR", tmp_path)
     monkeypatch.setattr(config.settings, "mastering_debug_skip_limits", True)
     gpu, cpu = MasteringEngine(), MasteringEngine(device="cpu")
     yield gpu, cpu
