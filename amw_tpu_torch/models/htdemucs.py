@@ -40,8 +40,10 @@ float32 arrays under the upstream names plus ``__config__`` (the config
 vector of ``htdemucs_jax._config_vec``); ``scripts/convert_htdemucs_port.py``
 writes it from the JAX package's orbax checkpoints.  :func:`separate`
 runs a track's overlapping windows through the network and cross-fades
-them (``htdemucs_jax.separate``); ``htdemucs_jax.separate_mesh`` has no
-counterpart on one card.
+them (``htdemucs_jax.separate``); :func:`separate_mesh` splits the window
+groups over the positions of a mesh (``parallel/mesh.py``), each running
+its groups on its device, and sums the partial accumulators
+(``htdemucs_jax.separate_mesh``).
 """
 
 from __future__ import annotations
@@ -927,3 +929,99 @@ def separate(params, mix: np.ndarray, cfg: HTConfig | None = None,
                 w_acc[s:s + seg] += w_dev
         out = (out / torch.clamp(w_acc, min=1e-8))[:, :, :T]
         return out.cpu().numpy()
+
+
+def mesh_models(params, mesh, cfg: HTConfig | None = None) -> dict:
+    """One inference model per distinct device of ``mesh``, by device, from
+    ``params``: an :class:`HTDemucs` (taken as it is on its own device,
+    copied to the others), a state dict (built on each device in the
+    inference dtype), or such a dict by device already."""
+    devs = mesh.distinct_devices()
+    if isinstance(params, dict) and all(
+            isinstance(k, torch.device) for k in params):
+        missing = [d for d in devs if d not in params]
+        if missing:
+            raise ValueError(f"no model on {missing}")
+        return params
+    if isinstance(params, HTDemucs):
+        import copy
+
+        home = next(params.parameters()).device
+        return {d: params if d == home else copy.deepcopy(params).to(d)
+                for d in devs}
+    return {d: inference_model(cfg or HTConfig(), params, device=d)
+            for d in devs}
+
+
+def separate_mesh(params, mix: np.ndarray, mesh, cfg: HTConfig | None = None,
+                  axis: str = "dp", segment: int | None = None,
+                  overlap: float = 0.25, batch: int = 4,
+                  stems: tuple | None = None, device_out: bool = False):
+    """Mesh-sharded separation (``htdemucs_jax.separate_mesh``): the
+    overlap-add window groups are independent, so they split over the
+    positions of the mesh's ``axis`` (the window-group count rounded up to
+    a multiple of the positions; the extra groups hold no window and are
+    not run).  Each position uploads the mix to its device, runs its
+    contiguous block of groups there as :func:`separate` runs them, and
+    adds their weighted stems into its own accumulators; the partial
+    stem and weight accumulators are then summed over the positions (the
+    JAX package's one ``psum``) and divided.  Other mesh axes are not
+    used (the 2-D serving mesh shards over ``dp`` only).
+
+    ``params``: as :func:`mesh_models` takes them.  Returns stems
+    [S, C, T] as numpy, or with ``device_out`` as a tensor on the first
+    position's device."""
+    from ..parallel.mesh import axis_devices
+
+    models = mesh_models(params, mesh, cfg)
+    devs = axis_devices(mesh, axis)
+    D = len(devs)
+    cfg = next(iter(models.values())).cfg
+    C, T = mix.shape
+    seg, stride, starts, nb_b, _t_ext, span = oa_plan(
+        cfg, T, segment=segment, overlap=overlap, batch=batch)
+    nb_b2 = ((max(nb_b, D) + D - 1) // D) * D
+    t_ext2 = (nb_b2 - 1) * batch * stride + span
+    src_idx = (list(range(len(cfg.sources))) if stems is None
+               else [cfg.sources.index(s) for s in stems])
+    w = _fade(seg)
+    n_seg = len(starts)
+    nb = (n_seg + batch - 1) // batch
+    local_nb = nb_b2 // D
+    adv = batch * stride
+    mix_host = _pack_mix(mix, t_ext2)
+    uploads: dict = {}
+    outs, wss = [], []
+    for k, dev in enumerate(devs):
+        model = models[dev]
+        dtype = next(model.parameters()).dtype
+        with torch.inference_mode(), _full_f32(dtype):
+            if dev not in uploads:
+                uploads[dev] = _upload(mix_host, dev)
+            mix_dev = uploads[dev]
+            idx = torch.tensor(src_idx, device=dev)
+            w_dev = torch.from_numpy(w).to(dev)
+            out = torch.zeros((len(src_idx), C, t_ext2),
+                              dtype=torch.float32, device=dev)
+            w_acc = torch.zeros(t_ext2, dtype=torch.float32, device=dev)
+            for i in range(k * local_nb, min((k + 1) * local_nb, nb)):
+                n_valid = min(batch, n_seg - i * batch)
+                w0 = i * adv
+                slab = mix_dev[:, w0:w0 + span]
+                chunk = torch.stack([slab[:, j * stride:j * stride + seg]
+                                     for j in range(n_valid)])
+                st = model(chunk).index_select(1, idx)
+                for j in range(n_valid):
+                    s0 = w0 + j * stride
+                    out[:, :, s0:s0 + seg] += st[j] * w_dev
+                    w_acc[s0:s0 + seg] += w_dev
+            outs.append(out)
+            wss.append(w_acc)
+    with torch.inference_mode():
+        home = devs[0]
+        out, w_acc = outs[0], wss[0]
+        for o, wa in zip(outs[1:], wss[1:]):
+            out = out + o.to(home)
+            w_acc = w_acc + wa.to(home)
+        out = (out / torch.clamp(w_acc, min=1e-8))[:, :, :T]
+    return out if device_out else out.cpu().numpy()

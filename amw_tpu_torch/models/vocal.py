@@ -204,14 +204,36 @@ def warmup_htdemucs(durations_sec, *, device=None) -> int:
     return len(seen)
 
 
-def separate_htdemucs(audio: np.ndarray, sr: int, *,
-                      device=None) -> np.ndarray | None:
+_mesh_lock = threading.Lock()
+_mesh_params_cache: dict = {}
+
+
+def _mesh_params(model, mesh) -> dict:
+    """One copy of the network per distinct device of ``mesh``
+    (``htdemucs.mesh_models``: the model itself on its own device), kept
+    for the last mesh only, so that a serving mesh's requests do not copy
+    the weights each time."""
+    key = (id(model), tuple(mesh.distinct_devices()))
+    with _mesh_lock:
+        got = _mesh_params_cache.get(key)
+        if got is None:
+            got = htdemucs.mesh_models(model, mesh)
+            _mesh_params_cache.clear()  # one live mesh copy is enough
+            _mesh_params_cache[key] = (model, got)
+            return got
+        return got[1]
+
+
+def separate_htdemucs(audio: np.ndarray, sr: int, *, device=None,
+                      mesh=None) -> np.ndarray | None:
     """[C, N] -> vocals [C, N] through the htdemucs network on ``device``
     (default ``cuda``), or ``None`` where no weights load.  The model rate
     is reached and left on the host with ``scipy.signal.resample``, in
     float64, as the JAX package does; a mono track is separated as
     doubled stereo and gets the mean of the two vocal channels; the
-    output is clipped to full scale."""
+    output is clipped to full scale.  With ``mesh`` (more than one
+    position) the window groups split over its first axis
+    (``htdemucs.separate_mesh``)."""
     dev = resolve_device(device)
     loaded = _htdemucs(dev)
     if loaded is None:
@@ -227,7 +249,12 @@ def separate_htdemucs(audio: np.ndarray, sr: int, *,
         n_model = int(round(n * cfg.samplerate / sr))
         x = np.stack([sg.resample(ch.astype(np.float64), n_model)
                       for ch in x]).astype(np.float32)
-    vocals = htdemucs.separate(model, x, stems=("vocals",))[0]
+    if mesh is not None and mesh.devices.size > 1:
+        vocals = htdemucs.separate_mesh(
+            _mesh_params(model, mesh), x, mesh, axis=mesh.axis_names[0],
+            stems=("vocals",))[0]
+    else:
+        vocals = htdemucs.separate(model, x, stems=("vocals",))[0]
     if sr != cfg.samplerate:
         import scipy.signal as sg
 
@@ -240,15 +267,16 @@ def separate_htdemucs(audio: np.ndarray, sr: int, *,
 
 
 def isolate_vocal(audio: np.ndarray, sr: int, model: str = "htdemucs", *,
-                  device=None) -> np.ndarray:
+                  device=None, mesh=None) -> np.ndarray:
     """Vocals of one track ``audio`` [C, N] (numpy), like it, on ``device``
     (default ``cuda``): the htdemucs network for ``model`` ``htdemucs`` or
-    ``auto`` where a checkpoint is configured and loads, else the DSP
+    ``auto`` where a checkpoint is configured and loads (over ``mesh``'s
+    positions where given: :func:`separate_htdemucs`), else the DSP
     separator (the reference's model choice,
     services/vocal_isolation.py:23)."""
     dev = resolve_device(device)
     if model in ("htdemucs", "auto"):
-        vocals = separate_htdemucs(audio, sr, device=dev)
+        vocals = separate_htdemucs(audio, sr, device=dev, mesh=mesh)
         if vocals is not None:
             return vocals
     params, fn = _built(sr, audio.shape[-1], audio.shape[0], dev)

@@ -9,13 +9,13 @@ defaults.
 
 Left out, and ignored where a deployment's environment sets them:
 
-- the serving mesh and the multi-process fields ``engine_mesh``,
-  ``engine_coordinator``, ``engine_num_processes``, ``engine_process_id``,
-  ``engine_sp_threshold_sec`` and ``engine_sp_quantize_sec``: the port's
-  engine serves on one GPU, and the time-sharded path
-  (``amw_tpu/parallel/timeshard.py``) is not ported;
 - ``compilation_cache_dir``: the directory of XLA's persistent
   compilation cache, which the port has no counterpart of;
+- ``engine_coordinator``, ``engine_num_processes`` and
+  ``engine_process_id``: the JAX engine joins its multi-host runtime with
+  them so that a TPU host's chips show; CUDA devices show without a
+  process group, and the port's serving mesh is over one process's GPUs
+  (``parallel/mesh.py``), so it joins none;
 - fields that no code of either package reads: ``ai_limit_free``,
   ``ai_limit_pro`` and ``ai_limit_studio`` (the AI routes' daily limits
   are ``ai.TIER_DAILY_LIMITS``), ``ai_prompt_report``,
@@ -115,10 +115,22 @@ class Settings:
     engine_micro_batch: bool = True
     engine_batch_window_ms: float = 50.0
     engine_max_micro_batch: int = 8
+    # Serve across every local GPU: micro-batches split data-parallel over
+    # a mesh of the devices, and tracks longer than the sp threshold are
+    # time-sharded over the same devices (parallel/timeshard.py).  With one
+    # GPU both are off: single-card behaviour is unchanged.
+    engine_mesh: bool = True
+    engine_sp_threshold_sec: float = 600.0
     # Highest bucket of the length ladder the engine pads up to
     # (parallel/batch.DEFAULT_BUCKETS_SEC); longer uploads run at exact
     # length.
     engine_max_bucket_sec: float = 2520.0
+    # Time-shard (sp) graphs are built per exact track length; snapping
+    # long uploads up to this grid (zero-padded, output sliced back) lets
+    # distinct lengths share one graph.  The padding is mastered as
+    # trailing silence, gated out of BS.1770, and sliced off before export.
+    # 0 = off (every length exact).
+    engine_sp_quantize_sec: float = 30.0
     # Build and run the default chain's graph for these buckets at service
     # start (comma separated seconds; "" = off).
     engine_warmup_buckets: str = ""

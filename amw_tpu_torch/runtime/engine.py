@@ -15,12 +15,16 @@ copy; run the graph once; read back the four stats of each track
 from its device slice (dither and int16 on the device,
 ``utils/audio_io.export_audio``) and encode on the host.
 
-The port serves on one GPU, even where ``torch.cuda.device_count() > 1``:
-the JAX engine's serving mesh (data-parallel batches over the local
-devices, and the sequence-parallel path for uploads past
-``engine_sp_threshold_sec``, ``amw_tpu/parallel/timeshard.py``) is not
-ported, so ``_master_v2_sp`` has no counterpart here and
-``last_batch_info["devices"]`` is always 1.
+Serving mesh (``parallel/mesh.py``), as the JAX engine's: on a host with
+more than one GPU the engine builds a mesh of its local GPUs (or takes the
+``mesh`` it is given, such as four positions on one card), micro-batches
+split data-parallel over the mesh's first axis (each position runs the
+graph on its slice with the params on its device, placed once per
+distinct device), and uploads longer than ``engine_sp_threshold_sec``
+(600 s: DJ sets) are time-sharded over the positions
+(``_master_v2_sp``, ``parallel/timeshard.py``, the counterpart of
+``amw_tpu/parallel/timeshard.py``).  A CPU engine, or one on a host with
+one GPU, builds no mesh and serves as before.
 
 Entry points run on ``cuda`` unless the engine is made with
 ``device="cpu"``; without a GPU a default engine raises
@@ -107,28 +111,52 @@ class MasteringEngine:
     MIN_BUCKET_SEC = 3.0
 
     def __init__(self, exact: bool | None = None, bucket: bool = True,
-                 micro_batch: bool | None = None, *, device=None):
+                 micro_batch: bool | None = None, *, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.exact = settings.engine_exact_mode if exact is None else exact
         self.bucket = bucket
         self.micro_batch = (settings.engine_micro_batch
                             if micro_batch is None else micro_batch)
+        self.mesh = mesh if mesh is not None else self._serving_mesh()
+        n_mesh = self.mesh.devices.size if self.mesh is not None else 1
         # LRU-capped: every distinct (bucket, chain-config, target, style)
         # signature builds its own graph whose params pin device memory;
         # unbounded custom configs would otherwise leak.
         self._cache: OrderedDict = OrderedDict()
         self._cache_cap = 32
+        # Sequence-parallel graphs are built per track length (the edge
+        # windows need static lengths), so distinct long uploads rarely
+        # share one: their own small LRU, so that a burst of DJ-set jobs
+        # cannot evict the bucketed graphs.
+        self._sp_cache: OrderedDict = OrderedDict()
+        self._sp_cache_cap = 4
         self._dur_ema: dict = {}  # graph key -> EMA of run wall time (sec)
         self._lock = threading.Lock()
         self._local = threading.local()  # the calling thread's timings
         self._batcher = None
         self.last_batch_info: dict | None = None
         if self.micro_batch:
+            # per-batch capacity scales with the mesh: 8 tracks a position
             self._batcher = Batcher(
                 self._run_v2_batch,
                 window_ms=settings.engine_batch_window_ms,
-                max_batch=settings.engine_max_micro_batch)
+                max_batch=settings.engine_max_micro_batch * n_mesh)
             self._batcher.start()
+
+    def _serving_mesh(self):
+        """The JAX engine's rule: with ``engine_mesh`` on, a mesh of this
+        process's GPUs where it has more than one; else ``None``.  (The
+        JAX engine first joins its multi-host runtime where a coordinator
+        is set, so that a TPU host's chips show; CUDA devices show without
+        a process group, so the port joins none.)"""
+        if not settings.engine_mesh or self.device.type != "cuda":
+            return None
+        from ..parallel.mesh import make_mesh
+
+        if torch.cuda.device_count() > 1:
+            return make_mesh(local_only=True)
+        return None
 
     def close(self) -> None:
         """Stop the micro-batcher's thread."""
@@ -151,18 +179,20 @@ class MasteringEngine:
 
     def _get_graph(self, kind: str, spec, key_extra: str, build):
         key = (kind, spec, key_extra)
+        cache = self._sp_cache if kind == "sp" else self._cache
+        cap = self._sp_cache_cap if kind == "sp" else self._cache_cap
         with self._lock:
-            hit = self._cache.get(key)
+            hit = cache.get(key)
             if hit is not None:
-                self._cache.move_to_end(key)
+                cache.move_to_end(key)
                 return hit
         built = build()
         with self._lock:
-            self._cache.setdefault(key, built)
-            self._cache.move_to_end(key)
-            while len(self._cache) > self._cache_cap:
-                self._cache.popitem(last=False)
-            return self._cache[key]
+            cache.setdefault(key, built)
+            cache.move_to_end(key)
+            while len(cache) > cap:
+                cache.popitem(last=False)
+            return cache[key]
 
     def _note_duration(self, ema_key, dt: float) -> None:
         """EMA of a graph's wall time for progress interpolation; bounded
@@ -231,6 +261,36 @@ class MasteringEngine:
                  "finite": bool(stats[3, i]), "timings": tm}
                 for i in range(xb.shape[0])]
 
+    def _execute_mesh(self, fn, placed: dict, xb: np.ndarray,
+                      nvb: np.ndarray) -> list:
+        """:meth:`_execute` split data-parallel over the mesh's first axis
+        (``parallel/mesh.shard_batch``): each position runs the graph on
+        its slice of the batch with the params on its device (``placed``);
+        every call is launched before the stats are read back, so
+        positions on different devices run at once.  The tracks in order,
+        with the step's timings."""
+        from ..parallel.mesh import axis_devices, shard_batch
+
+        tm = {}
+        t0 = time.perf_counter()
+        xs = shard_batch(np.asarray(xb, np.float32), self.mesh)
+        nvs = shard_batch(np.asarray(nvb, np.int32), self.mesh)
+        t0 = add_seconds(tm, "h2d", t0)
+        results = [fn(x, placed[d], nv, None) for d, x, nv in
+                   zip(axis_devices(self.mesh), xs, nvs)]
+        items = []
+        for res in results:
+            stats = torch.stack([res["before_lufs"], res["after_lufs"],
+                                 res["peak"],
+                                 res["finite"].to(torch.float32)]
+                                ).cpu().numpy()
+            items += [{"out": res["out"][i], "before_lufs": stats[0, i],
+                       "after_lufs": stats[1, i], "peak": stats[2, i],
+                       "finite": bool(stats[3, i]), "timings": tm}
+                      for i in range(stats.shape[1])]
+        add_seconds(tm, "graph", t0)
+        return items
+
     # -- job runners -------------------------------------------------------
 
     def master_v2_bytes(
@@ -258,11 +318,28 @@ class MasteringEngine:
                 report(3, "Vocal isolation…")
                 from ..models import vocal
 
-                audio = vocal.isolate_vocal(audio, sr, device=self.device)
+                # on a serving mesh the network's window groups split
+                # over its first axis (htdemucs.separate_mesh)
+                audio = vocal.isolate_vocal(audio, sr, device=self.device,
+                                            mesh=self.mesh)
                 pro = {k: v for k, v in pro.items()
                        if k != "apply_vocal_isolation"}
                 t0 = add_seconds(tm, "vocal", t0)
             n, C = audio.shape[-1], audio.shape[0]
+            if (self.mesh is not None
+                    and n > int(settings.engine_sp_threshold_sec * sr)):
+                # DJ-set-length upload: time-shard the one track over the
+                # serving mesh instead of one huge single-device graph
+                sp = self._sp_graph(audio, sr, target_lufs=target_lufs,
+                                    style=style, chain_config=chain_config,
+                                    pro=pro)
+                if sp is not None:
+                    add_seconds(tm, "build", t0)
+                    return self._master_v2_sp(
+                        audio, sr, sp, out_format=out_format,
+                        chain_config=chain_config, dither_type=dither_type,
+                        auto_blank_sec=auto_blank_sec, bitrate=bitrate,
+                        report=report)
             spec = self._spec_for(sr, n, C)
             key = json.dumps(
                 {"cfg": chain_config, "pro": pro, "style": style,
@@ -271,7 +348,7 @@ class MasteringEngine:
             report(5, "Mastering (v2)…")
             use_ticks = (progress is not None and self._batcher is None
                          and prog_mod.callbacks_supported())
-            params, fn, names = self._get_graph(
+            params, fn, names, _ = self._get_graph(
                 "v2", spec, key,
                 lambda: self._built_v2(spec, chain_config, pro, target_lufs,
                                        style))
@@ -285,9 +362,14 @@ class MasteringEngine:
                 if self._batcher is not None:
                     ema = self._get_duration(ema_key) if progress else None
                     # Memory-derived batch cap: B=8 at the 180 s bucket is
-                    # the validated working set; longer buckets batch fewer
-                    # tracks (a 600 s bucket caps at 2).
-                    cap = max(1, int((8 * 180 * 44100) // max(spec.n, 1)))
+                    # the validated working set of a position; longer
+                    # buckets batch fewer tracks (a 600 s bucket caps at
+                    # 2), and a serving mesh multiplies the cap by its
+                    # positions.
+                    n_mesh = (self.mesh.devices.size
+                              if self.mesh is not None else 1)
+                    cap = n_mesh * max(
+                        1, int((8 * 180 * 44100) // max(spec.n, 1)))
                     with prog_mod.TimedTicker(names, report, ema):
                         res = self._batcher.submit(
                             ("v2", spec, key), xb, aux=nv,
@@ -344,6 +426,70 @@ class MasteringEngine:
             "after_lufs": None if after < -1e8 else after,
         }
 
+    def _sp_graph(self, audio, sr, *, target_lufs, style, chain_config,
+                  pro):
+        """``(graph, key)`` of the sequence-parallel v2 job for ``audio``
+        (``graph``: ``build_sp_master``'s ``(fn, params, n_pad)``; ``key``:
+        its cache key), or ``None`` where the time-shard builder rejects
+        the job (a reverb IR wider than the halo, a non-uniform gating
+        grid, a track too short for the positions), logged: the
+        single-device graph then serves it, as in the JAX engine.
+
+        Graphs are cached per (track length, config): the edge windows
+        that make the output match the single-device graph need static
+        lengths.  ``engine_sp_quantize_sec`` snaps the length up to a grid
+        (the pad mastered as trailing silence, gated out of BS.1770, and
+        sliced off), so that distinct long uploads share one graph."""
+        from ..parallel.timeshard import build_sp_master
+
+        C, n = audio.shape
+        grid = int(float(settings.engine_sp_quantize_sec or 0) * sr)
+        n_q = ((n + grid - 1) // grid) * grid if grid > 0 else n
+        key = json.dumps(
+            {"cfg": chain_config, "pro": pro, "style": style,
+             "t": round(float(target_lufs), 2), "sp": True},
+            sort_keys=True, default=str)
+        try:
+            graph = self._get_graph(
+                "sp", (sr, n_q, C), key,
+                lambda: build_sp_master(
+                    sr, n_q, C, self.mesh, target_lufs=target_lufs,
+                    style=style, chain_config=chain_config, pro=pro,
+                    stats=True))
+        except ValueError as e:
+            _log.warning("sp path rejected config (%s); falling back to "
+                         "the single-device graph", e)
+            return None
+        return graph, ("sp", (sr, n_q, C), key)
+
+    def _master_v2_sp(self, audio, sr, sp, *, out_format, chain_config,
+                      dither_type, auto_blank_sec, bitrate, report) -> dict:
+        """Sequence-parallel v2 job: ONE long track time-sharded over the
+        serving mesh (``parallel/timeshard.py``) through the graph of
+        :meth:`_sp_graph` — the 800 MB DJ-set uploads of the reference
+        (config.py:26-33) served across every position instead of one."""
+        tm = self._local.timings
+        (fn, params, n_pad), ema_key = sp
+        n = audio.shape[-1]
+        report(5, "Mastering (sequence-parallel)…")
+        t0 = time.perf_counter()
+        xp = np.pad(np.ascontiguousarray(audio, np.float32),
+                    ((0, 0), (0, n_pad - n)))
+        t0 = add_seconds(tm, "decode", t0)
+        t_run = time.monotonic()
+        with _maybe_profile("master_v2_sp"):
+            ema = self._get_duration(ema_key)
+            with prog_mod.TimedTicker(["sp_master"], report, ema):
+                res = fn(xp, params)
+                stats = {k: float(res[k]) for k in
+                         ("before_lufs", "after_lufs", "peak", "finite")}
+            self._note_duration(ema_key, time.monotonic() - t_run)
+        add_seconds(tm, "graph", t0)
+        return self._finish_v2(
+            res["out"][..., :n], sr, stats, report, out_format=out_format,
+            chain_config=chain_config, dither_type=dither_type,
+            auto_blank_sec=auto_blank_sec, bitrate=bitrate)
+
     def warmup(self, buckets_sec=(180.0,), sr: int = 44100,
                target_lufs: float = -14.0, style: str = "standard") -> None:
         """Build (and run once on zeros) the default v2 graph for the given
@@ -359,7 +505,7 @@ class MasteringEngine:
                         {"cfg": None, "pro": {}, "style": style,
                          "t": round(float(target_lufs), 2)},
                         sort_keys=True, default=str)
-                    params, fn, _ = self._get_graph(
+                    params, fn, _, _ = self._get_graph(
                         "v2", spec, key,
                         lambda: self._built_v2(spec, None, {}, target_lufs,
                                                style))
@@ -384,19 +530,38 @@ class MasteringEngine:
                 _log.warning("htdemucs warmup failed", exc_info=True)
 
     def _built_v2(self, spec, chain_config, pro, target_lufs, style):
-        # A graph reports its stages only when a job hands it a token, so
-        # one graph a key serves jobs with ticks and without (the JAX
-        # engine compiles a second graph, keyed ";ticks", for them).
-        return build_v2_job_graph(spec, chain_config, pro, target_lufs,
-                                  style, device=self.device)
+        """``(params, fn, names, placed)``: the v2 graph on the engine's
+        device, and with a serving mesh its params on every device of the
+        mesh (:meth:`_put_params`).  A graph reports its stages only when
+        a job hands it a token, so one graph a key serves jobs with ticks
+        and without (the JAX engine compiles a second graph, keyed
+        ";ticks", for them)."""
+        params, fn, names = build_v2_job_graph(
+            spec, chain_config, pro, target_lufs, style, device=self.device)
+        return params, fn, names, self._put_params(params)
+
+    def _put_params(self, params):
+        """With a serving mesh, the params once on each distinct device of
+        the mesh (``parallel/mesh.replicate``; already on the engine's
+        device, they are not copied there), by device; else ``None``."""
+        if self.mesh is None:
+            return None
+        from ..parallel.mesh import replicate
+
+        return replicate(params, self.mesh)
 
     # -- micro-batching (see runtime/batcher.py) ---------------------------
 
-    @staticmethod
-    def _batch_size_for(b: int) -> int:
+    def _batch_size_for(self, b: int) -> int:
         """Batch width for ``b`` submitted tracks: the next power of two
-        (the JAX engine's compiled widths; a burst of 3 runs as 4)."""
-        return 1 << (b - 1).bit_length()
+        (the JAX engine's compiled widths; a burst of 3 runs as 4), rounded
+        up to a multiple of the serving mesh's positions so that the split
+        is even."""
+        b_eff = 1 << (b - 1).bit_length()
+        if self.mesh is not None:
+            n_dev = self.mesh.devices.size
+            b_eff = n_dev * (-(-b_eff // n_dev))
+        return b_eff
 
     def _run_v2_batch(self, bkey, xb, nvb):
         t_start = time.perf_counter()
@@ -407,7 +572,7 @@ class MasteringEngine:
             # distinct graphs inside one 50 ms batch window).
             raise RuntimeError(
                 "compiled graph evicted under cache pressure; retry the job")
-        params, fn, _names = entry
+        params, fn, _names, placed = entry
         b = xb.shape[0]
         b_eff = self._batch_size_for(b)
         nvb = np.asarray(nvb, np.int32)
@@ -415,10 +580,19 @@ class MasteringEngine:
             xb = np.concatenate(
                 [xb, np.repeat(xb[:1], b_eff - b, axis=0)], axis=0)
             nvb = np.concatenate([nvb, np.repeat(nvb[:1], b_eff - b)])
-        items = self._execute(fn, params, xb, nvb)[:b]
-        # Observability: how wide the step ran, on how many devices.
+        if self.mesh is None:
+            items = self._execute(fn, params, xb, nvb)[:b]
+            devices = 1
+        else:
+            # data-parallel serving step: the micro-batch split over the
+            # mesh's first axis, the params on each position's device
+            from ..parallel.mesh import axis_devices
+
+            items = self._execute_mesh(fn, placed, xb, nvb)[:b]
+            devices = len(axis_devices(self.mesh))
+        # Observability: how wide the step ran, over how many positions.
         self.last_batch_info = {"batch": b, "batch_compiled": b_eff,
-                                "devices": 1}
+                                "devices": devices}
         for it in items:
             it["t_start"] = t_start
             it["timings"]["stack"] = self._batcher.last_stack_s

@@ -13,7 +13,8 @@ status codes; the routers of ``runtime/auth_routes.py`` (accounts),
 and ``misc_routes.py`` (public info, referrals, the blog), registered in
 the JAX service's order; the Telegram user bot and the admin/notify bot
 (``runtime/bot.py``) on their webhooks where their tokens are set.  Jobs
-run on ``MasteringEngine`` (one GPU, micro-batched) under the job
+run on ``MasteringEngine`` (micro-batched, over its serving mesh where
+it has one) under the job
 semaphores of ``runtime/jobs.py``; the analysis handlers, the AI routes'
 analysis, the vocal separator and the user bot run on the engine's device,
 so an app made with ``MasteringEngine(device="cpu")`` runs wholly on the
@@ -319,9 +320,11 @@ async def h_metrics(request):
         "jobs_running": c["jobs_running"],
         "jobs_total": c["jobs_total"],
         "version": __version__,
-        # The port's engine serves on one GPU (no serving mesh); the last
-        # micro-batch (batch width / compiled width / devices used).
-        "mesh_devices": 1,
+        # Serving-mesh observability: the mesh's positions and the last
+        # micro-batch (batch width / compiled width / positions used).
+        "mesh_devices": (int(engine.mesh.devices.size)
+                         if getattr(engine, "mesh", None) is not None
+                         else 1),
         "last_batch": engine.last_batch_info,
     })
 

@@ -9,9 +9,10 @@ module list, validation failures.
 
 The port's copy of ``amw_tpu/utils/trace.py``.  The service logs the
 job-level events; ``trace_stage`` is for a caller that holds a stage's
-output (the graphs expose no intermediate buffers), and its optional
-loudness is the port's meter (``ops/meters.integrated_lufs``) on a CPU
-tensor.
+output (the graphs expose no intermediate buffers), such as the
+stage-by-stage run of ``qa/mastering_regression.run_default_chain_stages``,
+and its optional loudness is the port's meter
+(``ops/meters.integrated_lufs``) on a CPU tensor.
 """
 
 from __future__ import annotations

@@ -187,7 +187,31 @@ Phases, each printing JSON lines:
              2.5 LSB and 0.01 LU of ``master_v2_bytes``, one v2 run's
              launches; (a) the admin's ``/api/admin/stats`` counting the
              phase's 31 masterings;
-11. a ``kernels`` line: each kernel's launches on the path that uses it
+11. mesh    — the serving mesh over meshes of positions on ``cuda:0``
+             (``parallel/mesh.py``): (a) a 660 s stereo upload (the
+             shortest the default 600 s threshold routes to the
+             sequence-parallel path) through ``MasteringEngine(mesh=<4
+             positions>)``'s ``master_v2_bytes`` with the pro set and the
+             true-peak ceiling at -1.0 dBTP: routed to ``_master_v2_sp``,
+             each position's launches against those derived from the code
+             (``sp_expected``), a warm request profiled (wall, device busy
+             and idle share, peak memory), each window variant's host
+             build time, the sp graph from the engine's cache against the
+             single-device v2 graph (exact mode) on the card (<= -90 dBFS
+             over the whole track, loudness before and after within 0.01
+             LU, true peak under the ceiling); (b) 4 concurrent 30 s
+             stereo requests to an engine over 2 positions and one over 1
+             (one graph build, shared): one step over 2 positions, each
+             response within 2.5 LSB and 0.01 LU of the graph and within 2
+             LSB and 0.01 LU of the other engine's; (c) ``isolate_vocal``
+             on the bundled checkpoint (f32) over 2 positions
+             (``htdemucs.separate_mesh``) against ``separate``: <= -90
+             dBFS; (d) the stage-by-stage regression harness
+             (``qa/mastering_regression``) on
+             ``scripts/gen_regression_fixture.render()``'s 165 s stereo,
+             every window metric within
+             ``tests/fixtures/mastering_regression/expected_metrics.json``;
+12. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -213,6 +237,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import aiohttp
@@ -244,6 +269,9 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         build_spectral_denoise,
                                         spectral_envelope)
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
+from amw_tpu_torch.parallel import timeshard
+from amw_tpu_torch.parallel.mesh import make_mesh
+from amw_tpu_torch.qa import mastering_regression
 from amw_tpu_torch.runtime import ai
 from amw_tpu_torch.runtime.bot import Bot
 from amw_tpu_torch.runtime import db as service_db
@@ -1493,7 +1521,7 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
           "true_peak_dbtp": tp_db, "wall_s_per_batch": wall,
           "realtime_factor": batch * dur / wall})
     if keep is not None:
-        keep[label] = (spec, params, fn)
+        keep[label] = (spec, params, fn, names)
     return launches, (lambda: fn(x_d, params, nv_d)), wall, names, y
 
 
@@ -2127,10 +2155,12 @@ def ht_engine(dev) -> dict:
     """(c) The engine: ``MasteringEngine(device=cuda)`` masters a 30 s
     stereo upload with ``apply_vocal_isolation`` under the bundled
     checkpoint, configured by the database row (source 3) of a temporary
-    database: the response within 2.5 LSB and 0.01 LU of the v2 graph
-    (``build_v2_job_graph``) run directly on ``separate_htdemucs``'s
-    vocals of the decoded upload; then ``warmup_htdemucs((180,))`` warms
-    one bucket."""
+    database: the engine's one cached graph is the default chain's at
+    ``TARGET_LUFS`` (its whole key checked), and the response is within
+    2.5 LSB and 0.01 LU of that graph run directly on
+    ``separate_htdemucs``'s vocals of the decoded upload; then
+    ``warmup_htdemucs((180,))`` warms one bucket.  (The engine's graph
+    builds are held against independent ones in the engine phase.)"""
     tmp = tempfile.mkdtemp(prefix="amw_htdemucs_")
     saved = (runtime_settings.vocal_isolation_enabled, service_db.db_path())
     service_db.set_db_path(os.path.join(tmp, "htdemucs.sqlite3"))
@@ -2151,8 +2181,12 @@ def ht_engine(dev) -> dict:
             check(voc is not None, "engine: the network did not load")
             n = audio.shape[-1]
             spec = eng._spec_for(SR, n, 2)
-            params, fn, _ = build_v2_job_graph(spec, None, {}, TARGET_LUFS,
-                                               "standard", device=dev)
+            # the engine's own graph for the request (one build)
+            (gkey, (params, fn, _, _)), = eng._cache.items()
+            want = json.dumps({"cfg": None, "pro": {}, "style": "standard",
+                               "t": round(TARGET_LUFS, 2)},
+                              sort_keys=True, default=str)
+            check(gkey == ("v2", spec, want), f"htdemucs engine: {gkey}")
             with torch.inference_mode():
                 y = fn(torch.from_numpy(eng._pad(voc, spec.n)[None]).to(dev),
                        params, torch.tensor([n], dtype=torch.int32,
@@ -2278,6 +2312,10 @@ ENGINE_RUNS = (("stereo", LONG[0], 2, "standard"),
 # kind of request is checked against
 ENGINE_GRAPHS = {"stereo": "v2_180s", "mono": "v2_mono_180s",
                  "clip": "v2_clip_2s"}
+# the kind whose graph the engine builds itself (the others are handed the
+# v2 runs' graphs), so that one engine build is held against an
+# independent one
+ENGINE_BUILDS = "clip"
 ENGINE_SEED = 40
 # The window of the checked bursts: ten uploads decoded at once on the
 # host spread their submissions over more than the default 50 ms, which
@@ -2401,7 +2439,8 @@ def lsb_err(blob: bytes, y: torch.Tensor, sr: int = SR) -> float:
 def check_against_graph(eng, reqs, out, dev, graphs) -> dict:
     """Each response within ``WAV16_LSB`` of its track through the graph
     that ``build_v2_job_graph`` built for its run (``graphs``, kept by
-    :func:`phase_v2`; not the engine's cache), called directly on the
+    :func:`phase_v2`; for ``ENGINE_BUILDS`` not the graph the engine
+    built and serves from its cache), called directly on the
     bucket-padded decoded upload (the same batch for the stereo requests);
     its ``after_lufs`` within ``METER_LU`` of the graph's.  Returns the
     largest deltas by kind."""
@@ -2409,7 +2448,7 @@ def check_against_graph(eng, reqs, out, dev, graphs) -> dict:
     for kind, label in ENGINE_GRAPHS.items():
         idx = [i for i, r in enumerate(reqs) if r["kind"] == kind]
         r0 = reqs[idx[0]]
-        spec, params, fn = graphs[label]
+        spec, params, fn, _ = graphs[label]
         espec = eng._spec_for(SR, r0["n"], r0["channels"])
         check(espec == spec, f"engine {kind}: bucket {espec} is not the "
               f"{label} graph's {spec}")
@@ -2464,7 +2503,9 @@ def profiled_burst(eng, reqs) -> tuple[list, float, dict]:
 def phase_engine(dev, eng, graphs: dict) -> dict:
     """The serving engine (``runtime/engine.MasteringEngine``) on the card.
     Warmup (the default graph cached and run once through the batcher
-    path), one warm request of each kind (their graphs built), then the
+    path), one request of each kind (the stereo and mono graphs the ones
+    the v2 runs built, ``graphs``, handed to the engine's cache; the
+    clip's, ``ENGINE_BUILDS``, built by the engine), then the
     burst three times: burst 1 checked (launches, one batch of 8 for the
     stereo key, every response against the graphs the v2 runs built,
     ``graphs``), burst 2 under torch.profiler (device busy and idle share;
@@ -2492,6 +2533,16 @@ def phase_engine(dev, eng, graphs: dict) -> dict:
     check(len(eng.batches) == 1 and eng.batches[0][1]["batch"] == 1,
           f"engine: warmup did not run its graph: {eng.batches}")
 
+    # the request kinds' graphs are the ones the v2 runs built (one build
+    # each, shared): handed to the engine under its own keys, but for one
+    # kind's, which the engine builds
+    for kind, label in ENGINE_GRAPHS.items():
+        if kind == ENGINE_BUILDS:
+            continue
+        spec_k, params, fn, names = graphs[label]
+        style = next(s_ for k, _, _, s_ in ENGINE_RUNS if k == kind)
+        eng._cache[("v2", spec_k, request_key(style))] = (params, fn, names,
+                                                         None)
     first = {}
     for kind, dur, channels, style in ENGINE_RUNS:
         r = next(q for q in reqs if q["kind"] == kind)
@@ -2499,6 +2550,11 @@ def phase_engine(dev, eng, graphs: dict) -> dict:
         eng.master_v2_bytes(r["data"], "t.wav", **r["kw"])
         first[kind] = {"first_request_s": time.perf_counter() - t0,
                        "split": eng.last_timings()}
+    spec_b, _, fn_b, _ = graphs[ENGINE_GRAPHS[ENGINE_BUILDS]]
+    style_b = next(s_ for k, _, _, s_ in ENGINE_RUNS if k == ENGINE_BUILDS)
+    built = eng._cache.get(("v2", spec_b, request_key(style_b)))
+    check(built is not None and built[1] is not fn_b,
+          f"engine: the {ENGINE_BUILDS} graph was not the engine's build")
 
     eng._batcher.window = ENGINE_WINDOW_S
     expect = {name: 0 for name in COUNTERS}
@@ -2597,7 +2653,7 @@ def engine_tools(dev, eng, reqs, graphs) -> dict:
     peng = MasteringEngine(micro_batch=False)
     # handed the burst's stereo graph: an engine graph ticks when a job
     # gives it a token, so one graph a key serves both engines
-    spec, params, fn = graphs[ENGINE_GRAPHS["stereo"]]
+    spec, params, fn, _ = graphs[ENGINE_GRAPHS["stereo"]]
     gkey = ("v2", spec, request_key(r["style"]))
     check(gkey in eng._cache, f"engine: no cached graph {gkey}")
     peng._cache[gkey] = eng._cache[gkey]
@@ -3412,6 +3468,478 @@ def phase_service(dev, eng, analyze_launches: dict) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# ---- the serving mesh: positions on one card -------------------------------
+
+# (a) the shortest upload the default 600 s threshold routes to the
+# sequence-parallel path, over 4 positions; (b) the data-parallel burst;
+# (c) the separator over 2 positions; (d) the regression fixture's render
+MESH_SP_S = 660.0
+# an upload off the engine's 30 s sp grid (engine_sp_quantize_sec): served
+# by the 660 s graph on the zero-padded upload, as most DJ sets are
+MESH_SP_OFFGRID_S = 645.0
+MESH_SP_POSITIONS = 4
+MESH_DP_S = 30.0
+MESH_DP_REQUESTS = 4
+MESH_SEED = 50
+MESH_HT_S = 180.0
+WAV16_PAIR_LSB = 2.0  # two dithered int16 responses of one master
+# the most a staged site plans past its window (twice the filter's padlen,
+# three settles and 16; ~157 000 samples in this chain): the launch model
+# holds where the window's plan and that length's plan agree
+SITE_PAD_MAX = 1 << 18
+REGRESSION_SCRIPT = Path(__file__).resolve().parent / "scripts" / \
+    "gen_regression_fixture.py"
+
+
+def positions(k: int):
+    """A mesh of ``k`` positions, all on ``cuda:0``."""
+    return make_mesh(k, devices=["cuda:0"] * k)
+
+
+def sp_position_expected(n: int, exact: bool, rows: int, pro: dict,
+                         style: str) -> dict:
+    """Each kernel's launches of one position's local stages, as the code
+    reads (amw_tpu_torch/parallel/timeshard.py and the ops it builds), for
+    the default chain config at ``style`` with the pro set ``pro``, on a
+    window of ``n`` samples of ``rows`` signal rows: the interior window
+    in fast mode (``exact`` False), an edge window exact (hybrid: the fast
+    pass over the window plus two-pass edges on ``torch.fft``).  Unlike
+    the single-device graph, the chain's modules run unfused (DC offset,
+    peak guard and the normalization are reductions over the positions):
+    the target curve, the multiband split (four fast passes in fast mode;
+    one ``roundtrip_multi_reduce`` in exact mode), the final balance and
+    the style EQ (one pass where the style sets a band) each on their
+    own."""
+    e = {name: 0 for name in COUNTERS}
+    packed = rows % 2 == 0
+    if pro.get("deesser_enabled"):
+        e["env_gain"] = e["box_smooth_same"] = 1
+    ballistics = [(0.0005, 0.005), (0.005, 0.1)] if (
+        "transient_attack" in pro) else []
+    dyn_eq = bool(pro.get("dynamic_eq_enabled"))
+    if dyn_eq:
+        ballistics += [(b["attack_ms"] / 1000.0, b["release_ms"] / 1000.0)
+                       for b in DYNAMIC_EQ_MASTERING_BANDS]
+    for att_s, rel_s in ballistics:
+        a, r = scan.ar_coefs(SR, att_s, rel_s)
+        short = scan.short_route(n, scan.warmup_len(a, r))
+        e["env_rows" if short else "env_scan"] += 1
+    if not fs.plan_ok(design.tpu_fft_plan(n)):
+        return e
+    cfg = STYLE_CONFIGS[style]
+    style_eq = any(abs(cfg[k]) >= 0.05
+                   for k in ("sub", "bass", "mids", "presence", "air"))
+    passes = (int(bool(pro.get("rumble_enabled")))
+              + int(bool(pro.get("deesser_enabled")))
+              + 1 + 1 + int(style_eq)  # target curve, final balance, style
+              + (len(DYNAMIC_EQ_MASTERING_BANDS) if dyn_eq else 0)
+              + (0 if exact else 4))  # the multiband split, fast mode
+    e["fft_bc_cb"] += passes
+    e["fft_stage_a"] += passes * (1 if packed else 2)
+    e["fft_stage_a_inv_join"] += passes if packed else 0
+    if exact:  # the hybrid multiband split: one forward, the reduce
+        e["fft_bccb_multi"] += 1
+        e["fft_stage_a"] += 1
+        e["fft_reduce_stage_a_packed" if packed
+          else "fft_reduce_stage_a"] += 1
+    return e
+
+
+def sp_expected(n_total: int, n_pad: int, n_dev: int, rows: int,
+                pro: dict, style: str) -> list:
+    """Each position's launches (:func:`sp_position_expected`) at its
+    window: the interior window (the chunk and both halos), the first
+    position's (chunk and right halo), the last's (left halo and its
+    valid samples), and where those are below the halo the
+    second-to-last's (left halo, chunk and the last's valid samples)."""
+    chunk = n_pad // n_dev
+    halo = min(timeshard.DEFAULT_HALO, chunk)
+    lv = n_total - (n_dev - 1) * chunk
+    out = []
+    for p in range(n_dev):
+        if p == n_dev - 1:
+            n, exact = halo + lv, True
+        elif lv < halo and p == n_dev - 2:
+            n, exact = halo + chunk + lv, True
+        elif p == 0:
+            n, exact = chunk + halo, True
+        else:
+            n, exact = chunk + 2 * halo, False
+        check(design.tpu_fft_plan(n)
+              == design.tpu_fft_plan(n + SITE_PAD_MAX),
+              f"sp launch model: a {n}-sample window is within "
+              f"{SITE_PAD_MAX} of another plan")
+        out.append(sp_position_expected(n, exact, rows, pro, style))
+    return out
+
+
+@contextlib.contextmanager
+def launches_by_position():
+    """Inside the block, each position's kernel launches: every launch of
+    the time-sharded step happens in a position's local stage
+    (``timeshard._run_variant``; the reductions run ``torch.fft`` and
+    reductions only), so the counters' change across each call is that
+    position's.  Yields ``{position: {kernel: launches}}``."""
+    by_pos: dict = {}
+    real = timeshard._run_variant
+
+    def counted(p, *a):
+        before = read_counts()
+        y = real(p, *a)
+        after = read_counts()
+        d = by_pos.setdefault(p, {name: 0 for name in COUNTERS})
+        for name in d:
+            d[name] += after[name] - before[name]
+        return y
+
+    timeshard._run_variant = counted
+    try:
+        yield by_pos
+    finally:
+        timeshard._run_variant = real
+
+
+def sp_against_single(sp, y_sp, ref, n: int) -> tuple[float, dict]:
+    """The sp graph's output ``y_sp`` (``n`` samples) against the
+    single-device graph's ``ref`` over those samples: the largest
+    difference, and the before/after loudness deltas of ``sp`` and
+    ``ref``."""
+    err = float((y_sp.double() - ref["out"][..., :n].double()).abs().max())
+    return err, {k: abs(float(sp[k]) - float(ref[k]))
+                 for k in ("before_lufs", "after_lufs")}
+
+
+def mesh_sp(dev) -> dict:
+    """(a) A 660 s stereo upload through ``MasteringEngine(mesh=<4
+    positions on cuda:0>)``'s ``master_v2_bytes`` with ``V2_FINISH_PRO``:
+    routed to ``_master_v2_sp`` (checked), its launches by position
+    against :func:`sp_expected`; a warm second request under
+    torch.profiler (wall, device busy and idle share, and its memory: the
+    peak above what the process held before it); the sp graph from the
+    engine's cache run directly on the decoded upload against the
+    single-device v2 graph (exact mode) on the card: <= -90 dBFS over the
+    whole track, before/after loudness within 0.01 LU, true peak under
+    the ceiling; the engine's response within 2.5 LSB of its graph's
+    output.  Then the first 645 s of the track, off the 30 s grid: served
+    by the same sp graph (the upload zero-padded to 660 s), held to the
+    single-device 660 s graph on the same zero-padded input by the same
+    bars over its 645 s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    track = make_track(SR, MESH_SP_S, seed=MESH_SEED)
+    data = wav16(track)
+    n_off = int(MESH_SP_OFFGRID_S * SR)
+    data_off = wav16(track[:, :n_off])
+    del track
+    x, _ = wav.read_wav(data)
+    x_off, _ = wav.read_wav(data_off)
+    n = x.shape[-1]
+    data_s = time.perf_counter() - t0
+    eng = MasteringEngine(micro_batch=False, mesh=positions(
+        MESH_SP_POSITIONS))
+    taken = []
+    real_sp = eng._master_v2_sp
+    eng._master_v2_sp = lambda *a, **k: taken.append(1) or real_sp(*a, **k)
+    kw = {"target_lufs": TARGET_LUFS, "style": "standard",
+          "pro": dict(V2_FINISH_PRO)}
+    spec = GraphSpec(sr=SR, n=n, channels=2, exact=True)
+
+    def build_single():
+        t0 = time.perf_counter()
+        built = build_v2_job_graph(spec, None, kw["pro"], TARGET_LUFS,
+                                   "standard", device=dev)
+        return built, time.perf_counter() - t0
+
+    # the single-device graph's host build (numpy, mostly outside the GIL)
+    # beside the engine's cold request, which builds the sp graph
+    pool = ThreadPoolExecutor(1)
+    single = pool.submit(build_single)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with launches_by_position() as by_pos:
+            res = eng.master_v2_bytes(data, "t.wav", **kw)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        split_cold = eng.last_timings()
+        launches = read_counts()
+        check(taken == [1] and len(eng._sp_cache) == 1,
+              f"mesh sp: route {taken}, sp graphs {list(eng._sp_cache)}")
+        (key, (fn, params, n_pad)), = eng._sp_cache.items()
+        check(key[1] == (SR, n, 2), f"mesh sp: graph length {key[1]}")
+        expect = sp_expected(n, n_pad, MESH_SP_POSITIONS, 2, kw["pro"],
+                             "standard")
+        got = [by_pos.get(p) for p in range(MESH_SP_POSITIONS)]
+        total = {k: sum(e[k] for e in expect) for k in COUNTERS}
+        check(got == expect, f"mesh sp: launches by position {got}, "
+              f"expected {expect}")
+        check(launches == total, f"mesh sp: launches {launches}, "
+              f"expected {total}")
+        # the single-device graph on the device before the warm request,
+        # so that its memory is in the baseline and not in the request's
+        t0 = time.perf_counter()
+        (p1, f1, _), single_build_s = single.result()
+        single_wait_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res2 = eng.master_v2_bytes(data, "t.wav", **kw)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        split_warm = eng.last_timings()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = device_rows(prof, 1)
+        check(rows, "mesh sp: the profiler saw no device event")
+        busy = sum(ms for _, ms, _ in rows)
+        graph_s = split_warm.get("graph", warm_s)
+
+        t0 = time.perf_counter()
+        res_off = eng.master_v2_bytes(data_off, "t.wav", **kw)
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+        check(taken == [1, 1, 1] and list(eng._sp_cache) == [key],
+              f"mesh sp {MESH_SP_OFFGRID_S:g} s: route {taken}, sp graphs "
+              f"{list(eng._sp_cache)}")
+
+        with torch.inference_mode():
+            out = {}
+            for label, xi, blobs in (("on_grid", x, (res, res2)),
+                                     ("off_grid", x_off, (res_off,))):
+                ni = xi.shape[-1]
+                sp = fn(np.pad(xi, ((0, 0), (0, n_pad - ni))), params)
+                y_sp = sp["out"][..., :ni]
+                ref = f1(torch.from_numpy(
+                    np.pad(xi, ((0, 0), (0, n - ni)))).to(dev), p1)
+                err, d_lu = sp_against_single(sp, y_sp, ref, ni)
+                out[label] = {
+                    "track_s": ni / SR, "max_err_vs_single_device": err,
+                    "max_err_vs_single_device_dbfs":
+                        20 * np.log10(max(err, 1e-30)),
+                    "lu_delta_vs_single_device": d_lu,
+                    "before_lufs": blobs[0]["before_lufs"],
+                    "after_lufs": blobs[0]["after_lufs"],
+                    "true_peak_dbtp": float(meters.true_peak_dbfs(y_sp)),
+                    "max_lsb_vs_graph": max(lsb_err(b["bytes"], y_sp)
+                                            for b in blobs)}
+                del sp, y_sp, ref
+            del p1, f1
+        for label, o in out.items():
+            check(o["max_err_vs_single_device_dbfs"] <= PARITY_DBFS,
+                  f"mesh sp {label}: {o['max_err_vs_single_device_dbfs']:.1f}"
+                  " dBFS from the single-device graph")
+            check(max(o["lu_delta_vs_single_device"].values()) <= METER_LU,
+                  f"mesh sp {label}: loudness deltas "
+                  f"{o['lu_delta_vs_single_device']}")
+            check(o["true_peak_dbtp"] <= TP_CEILING_DB + TP_SLACK_DB,
+                  f"mesh sp {label}: true peak {o['true_peak_dbtp']} dBTP")
+            check(o["max_lsb_vs_graph"] <= WAV16_LSB,
+                  f"mesh sp {label}: response {o['max_lsb_vs_graph']} LSB "
+                  "from its graph")
+    finally:
+        eng.close()
+        pool.shutdown()
+    return {"track_s": MESH_SP_S, "positions": MESH_SP_POSITIONS,
+            "n_pad": n_pad, "chunk": n_pad // MESH_SP_POSITIONS,
+            "data_s": data_s, "cold_request_s": cold_s,
+            "split_cold": split_cold, "variant_build_s": fn.build_seconds,
+            "warm_request_s": warm_s, "split_warm": split_warm,
+            "realtime_factor_warm": MESH_SP_S / warm_s,
+            "device_busy_ms": busy,
+            "device_idle_share_of_graph": 1.0 - busy / (graph_s * 1e3),
+            "device_idle_share_of_request": 1.0 - busy / (warm_s * 1e3),
+            "memory_before_request_gb": base_gb,
+            "peak_device_gb": peak_gb,
+            "request_peak_above_before_gb": peak_gb - base_gb,
+            "launches": launches, "launches_by_position": got,
+            "top": [{"kernel": k[:90], "ms": ms, "calls": c}
+                    for k, ms, c in rows[:10]],
+            **out["on_grid"],
+            "off_grid": {**out["off_grid"], "request_s": off_s},
+            "single_device_build_s": single_build_s,
+            "single_device_build_wait_s": single_wait_s}
+
+
+def mesh_dp(dev) -> dict:
+    """(b) Four concurrent 30 s stereo requests (``V2_PRO``) to an engine
+    over 2 positions and to one over 1 position (the graph built once,
+    shared): the first runs one step over 2 positions, the second over
+    1; launches those of the graph calls; each response within 2.5 LSB
+    and 0.01 LU of the graph called directly on the batch, and within 2
+    LSB and 0.01 LU of the other engine's."""
+    reqs = []
+    for i in range(MESH_DP_REQUESTS):
+        x = make_track(SR, MESH_DP_S, seed=MESH_SEED + 1 + i)
+        reqs.append({"label": f"dp_{i}", "data": wav16(x), "n": x.shape[-1],
+                     "channels": 2, "kw": {"target_lufs": TARGET_LUFS,
+                                           "style": "standard",
+                                           "pro": dict(V2_PRO)}})
+    engines = {k: RecordingEngine(mesh=positions(k)) for k in (2, 1)}
+    out = {}
+    try:
+        two, one = engines[2], engines[1]
+        t0 = time.perf_counter()
+        two.master_v2_bytes(reqs[0]["data"], "t.wav", **reqs[0]["kw"])
+        build_s = time.perf_counter() - t0
+        (gkey, entry), = two._cache.items()
+        one._cache[gkey] = entry  # one build for both engines
+        spec = gkey[1]
+        calls = {2: 2, 1: 1}  # graph calls of the step: positions
+        for k, eng in engines.items():
+            eng._batcher.window = ENGINE_WINDOW_S
+            eng.batches.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            res, wall = run_burst(eng, reqs)
+            launches = read_counts()
+            rows = MESH_DP_REQUESTS * 2 // k
+            expect = {n_: v * calls[k] for n_, v in job_expected(
+                spec.n, rows, "standard").items()}
+            check(eng.batches == [(gkey, {"batch": MESH_DP_REQUESTS,
+                                          "batch_compiled":
+                                          MESH_DP_REQUESTS,
+                                          "devices": k})],
+                  f"mesh dp {k}: batches {eng.batches}")
+            check(launches == expect, f"mesh dp {k}: launches {launches}, "
+                  f"expected {expect}")
+            out[k] = {"res": res, "wall_s": wall, "launches": launches}
+        params, fn = entry[0], entry[1]
+        xb = np.stack([eng._pad(wav.read_wav(r["data"])[0], spec.n)
+                       for r in reqs])
+        nv = np.asarray([r["n"] for r in reqs], np.int32)
+        with torch.inference_mode():
+            ref = fn(torch.from_numpy(xb).to(dev), params,
+                     torch.from_numpy(nv).to(dev))
+            to_graph = max(lsb_err(out[k]["res"][i][0]["bytes"],
+                                   ref["out"][i, :, :r["n"]])
+                           for k in engines for i, r in enumerate(reqs))
+            lu_graph = max(abs(out[k]["res"][i][0]["after_lufs"]
+                               - float(ref["after_lufs"][i]))
+                           for k in engines for i in range(len(reqs)))
+        del ref
+        pair = max(float(np.max(np.abs(
+            decode_int16(out[2]["res"][i][0]["bytes"]).astype(np.int32)
+            - decode_int16(out[1]["res"][i][0]["bytes"]))))
+            for i in range(len(reqs)))
+        lu_pair = max(abs(out[2]["res"][i][0]["after_lufs"]
+                          - out[1]["res"][i][0]["after_lufs"])
+                      for i in range(len(reqs)))
+        check(to_graph <= WAV16_LSB and lu_graph <= METER_LU,
+              f"mesh dp: {to_graph} LSB, {lu_graph} LU from the graph")
+        check(pair <= WAV16_PAIR_LSB and lu_pair <= METER_LU,
+              f"mesh dp: engines {pair} LSB, {lu_pair} LU apart")
+    finally:
+        for eng in engines.values():
+            eng.close()
+    return {"requests": MESH_DP_REQUESTS, "track_s": MESH_DP_S,
+            "bucket_n": spec.n, "graph_build_s": build_s,
+            "wall_s": {f"{k}_positions": out[k]["wall_s"] for k in out},
+            "launches": {f"{k}_positions": out[k]["launches"] for k in out},
+            "max_lsb_vs_graph": to_graph, "max_lu_vs_graph": lu_graph,
+            "max_lsb_between_engines": pair, "max_lu_between_engines":
+            lu_pair}
+
+
+def mesh_separate(dev) -> dict:
+    """(c) ``isolate_vocal`` on the bundled checkpoint (f32) for a 180 s
+    stereo track over 2 positions (through ``htdemucs.separate_mesh``,
+    checked) against the call without a mesh (``separate``): <= -90
+    dBFS."""
+    x = make_track(SR, MESH_HT_S, seed=MESH_SEED + 9)
+    mesh = positions(2)
+    runs = []
+    real = htdemucs.separate_mesh
+
+    def spied(*a, **k):
+        runs.append(1)
+        return real(*a, **k)
+
+    with env_set(AMW_HTDEMUCS_CKPT="bundled", AMW_HTDEMUCS_DTYPE="f32"):
+        htdemucs.separate_mesh = spied
+        try:
+            t0 = time.perf_counter()
+            got = isolate_vocal(x, SR, device=dev, mesh=mesh)
+            mesh_s = time.perf_counter() - t0
+        finally:
+            htdemucs.separate_mesh = real
+        t0 = time.perf_counter()
+        want = isolate_vocal(x, SR, device=dev)
+        single_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(got.astype(np.float64) - want)))
+    err_db = 20 * np.log10(max(err, 1e-30))
+    check(runs == [1], f"mesh separate: separate_mesh ran {len(runs)}x")
+    check(got.shape == want.shape == x.shape and err_db <= PARITY_DBFS,
+          f"mesh separate: {got.shape}, {err_db:.1f} dBFS from separate")
+    return {"track_s": MESH_HT_S, "positions": 2, "dtype": "f32",
+            "mesh_wall_s": mesh_s, "single_wall_s": single_s,
+            "max_err": err, "max_err_dbfs": err_db}
+
+
+def mesh_regression(dev) -> dict:
+    """(d) The stage-by-stage regression harness
+    (``qa/mastering_regression``) on the card: the fixture that
+    ``scripts/gen_regression_fixture.render()`` makes (165 s stereo, as
+    its WAV holds it: int16, no dither), the default chain's full stage
+    list, and every window metric within the thresholds of
+    ``tests/fixtures/mastering_regression/expected_metrics.json``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("gen_regression_fixture",
+                                                  REGRESSION_SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    audio = mod.render()
+    q = np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16)
+    x, sr = wav.read_wav(wav.write_wav_int16(q, mod.SR))
+    t0 = time.perf_counter()
+    rows = mastering_regression.metrics_after_each_stage(x, sr, device=dev)
+    wall = time.perf_counter() - t0
+    th = mastering_regression.load_expected_thresholds()
+    check(th is not None, "mesh regression: no thresholds")
+    ids = [r["stage"] for r in rows]
+    check(ids[-2:] == ["chain_finalize_clip", "v2_output_fade_in"]
+          and any("dynamics" in s for s in ids),
+          f"mesh regression: stages {ids}")
+    in_m = mastering_regression.window_metrics(x, sr)
+    final = rows[-1]["windows"]
+    ratios = {}
+    for name, m in final.items():
+        ratio = m["hf_rms"] / max(in_m[name]["hf_rms"], 1e-9)
+        ratios[name] = ratio
+        check(ratio < min(th["hf_ratio_limit"],
+                          th["max_hf_rms_ratio_vs_input"][name]),
+              f"mesh regression: {name} HF ratio {ratio}")
+        check(m["max_abs_diff"] < min(th["max_abs_diff_limit"],
+                                      th["max_final_abs_diff"]),
+              f"mesh regression: {name} max |diff| {m['max_abs_diff']}")
+    return {"track_s": x.shape[-1] / sr, "stages": ids, "wall_s": wall,
+            "hf_ratio": ratios,
+            "final_max_abs_diff": {k: m["max_abs_diff"]
+                                   for k, m in final.items()},
+            "thresholds": {k: th[k] for k in ("hf_ratio_limit",
+                                              "max_abs_diff_limit")}}
+
+
+def phase_mesh(dev) -> None:
+    """The serving mesh on the card, over meshes of positions on
+    ``cuda:0``: (a) :func:`mesh_sp`, (b) :func:`mesh_dp`, (c)
+    :func:`mesh_separate`, (d) :func:`mesh_regression`, a line each."""
+    t_phase = time.perf_counter()
+    for label, run in (("sp", mesh_sp), ("dp", mesh_dp),
+                       ("separate", mesh_separate),
+                       ("regression", mesh_regression)):
+        t0 = time.perf_counter()
+        out = run(dev)
+        emit({"phase": "mesh", "run": label, **out,
+              "run_s": time.perf_counter() - t0})
+    emit({"phase": "mesh", "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -3527,6 +4055,7 @@ def main() -> None:
         phase_service(dev, eng, an["analyze_180s"])
     finally:
         eng.close()
+    phase_mesh(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}

@@ -16,6 +16,7 @@ numbers of an analysis, within 0.01.
 import asyncio
 import re
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from amw_tpu.runtime import bot as jbot
 from amw_tpu.runtime import config as jconfig
 from amw_tpu.runtime import db as jdb
+from amw_tpu.runtime import jobs as jjobs
 from amw_tpu.runtime import users as jusers
 from amw_tpu.runtime.auth import hash_password as jhash
 from amw_tpu.runtime.engine import MasteringEngine as JaxEngine
@@ -31,6 +33,7 @@ from amw_tpu.runtime.service import create_app as jax_create_app
 from amw_tpu_torch.runtime import bot as tbot
 from amw_tpu_torch.runtime import config as tconfig
 from amw_tpu_torch.runtime import db as tdb
+from amw_tpu_torch.runtime import jobs as tjobs
 from amw_tpu_torch.runtime import users as tusers
 from amw_tpu_torch.runtime.auth import hash_password as thash
 from amw_tpu_torch.runtime.engine import MasteringEngine
@@ -88,7 +91,9 @@ def engines():
 
 @pytest.fixture()
 def env(engines, tmp_path, monkeypatch):
-    """Both packages on fresh databases; the JAX bot's engine set."""
+    """Both packages on fresh databases and empty job registries (other
+    test files in the same process may leave jobs there); the JAX bot's
+    engine set."""
     jdb.set_db_path(str(tmp_path / "jax.sqlite3"))
     tdb.set_db_path(str(tmp_path / "port.sqlite3"))
     for _, _, users, _, _ in SIDES:
@@ -98,7 +103,9 @@ def env(engines, tmp_path, monkeypatch):
     monkeypatch.setattr(jbot, "get_engine", lambda: engines[0])
     monkeypatch.setattr(tdemo, "DEMO_DIR", rendered_demo_dir(
         tmp_path / "demos"))
-    return engines
+    with mock.patch.dict(jjobs._jobs, clear=True), \
+            mock.patch.dict(tjobs._jobs, clear=True):
+        yield engines
 
 
 def _bots(env, file_bytes=b""):

@@ -256,3 +256,32 @@ def test_service_defaults_to_cuda_and_raises_without_it(monkeypatch,
         service.create_app()
     with pytest.raises(RuntimeError, match="CUDA"):
         service.main(port=0)
+
+
+def test_mesh_modules_are_checked():
+    """The no-JAX check above covers the serving mesh, the time-sharded
+    path and the regression harness."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("parallel/mesh.py", "parallel/batch.py",
+                "parallel/timeshard.py", "qa/mastering_regression.py",
+                "qa/__init__.py", "models/htdemucs.py"):
+        assert f"amw_tpu_torch/{mod}" in names, mod
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    from amw_tpu_torch.parallel import batch, mesh
+    from amw_tpu_torch.parallel.timeshard import sp_master
+    from amw_tpu_torch.qa import mastering_regression
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((2, 44100), np.float32)
+    for call in (lambda: mesh.make_mesh(), lambda: mesh.make_mesh2d(1, 2),
+                 lambda: mesh.make_pod_mesh(),
+                 lambda: mesh.make_mesh(devices=["cuda:0", "cuda:0"]),
+                 lambda: batch.batch_master(x[None], 44100),
+                 lambda: sp_master(x, 44100, mesh.make_mesh()),
+                 lambda: mastering_regression.run_default_chain_stages(
+                     x, 44100)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

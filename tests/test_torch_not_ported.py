@@ -34,11 +34,25 @@ def _v2(pro):
     return lambda: build_v2_job_graph(SPEC, None, pro, device="cpu")
 
 
+def _pod_mesh_across_processes():
+    """``make_pod_mesh`` inside a (faked) two-process group."""
+    import torch.distributed as dist
+
+    from amw_tpu_torch.parallel.mesh import make_pod_mesh
+
+    with mock.patch.object(dist, "is_initialized", lambda: True), \
+            mock.patch.object(dist, "get_world_size", lambda: 2):
+        make_pod_mesh(devices=["cpu"] * 2)
+
+
 ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
 # case -> (trigger, amw_tpu module files named, what the message points at)
 CASES = {
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
                            ["amw_tpu/runtime/engine.py"], ENGINE_V2),
+    "pod_mesh_across_processes": (_pod_mesh_across_processes,
+                                  ["amw_tpu/parallel/mesh.py"],
+                                  "ROADMAP.md"),
 }
 
 
@@ -98,8 +112,9 @@ def test_v2_job_docstring_names_an_existing_runtime_module():
 
 
 def test_engine_docstring_names_the_unported_mesh_module():
-    """The engine serves on one GPU; its docstring names the JAX package's
-    sequence-parallel module that it leaves out."""
+    """The engine's docstring names the JAX package's sequence-parallel
+    module, the counterpart of the port's ``parallel/timeshard.py`` that
+    its ``_master_v2_sp`` runs."""
     from amw_tpu_torch.runtime import engine
 
     named = re.findall(r"amw_tpu/[\w/]+\.py", engine.__doc__)

@@ -458,12 +458,10 @@ def test_settings_fields_match_jax():
     module of the port reads, with the same defaults; the others are named
     in its docstring, and every field it keeps is read."""
     left_out = {
-        # The serving mesh and multi-process serving: not ported.
-        "engine_mesh", "engine_coordinator", "engine_num_processes",
-        "engine_process_id", "engine_sp_threshold_sec",
-        "engine_sp_quantize_sec",
         # XLA's persistent compilation cache: no counterpart.
         "compilation_cache_dir",
+        # The JAX engine's multi-host join: CUDA devices show without it.
+        "engine_coordinator", "engine_num_processes", "engine_process_id",
         # Read by no code of either package.
         "ai_limit_free", "ai_limit_pro", "ai_limit_studio",
         "ai_prompt_report", "ai_prompt_nl_config", "ai_prompt_chat",
