@@ -24,26 +24,34 @@
 // the split through device memory that works for every C in 32..1024
 // (design (b)), three kernels launched by amw_fft_bccb:
 //
-//   1. col_dft128_kernel (fft128.cuh): forward B and T2, x -> scratch z;
+//   1. breg_fwd_kernel (fft_breg.cuh): forward B and T2, x -> scratch z;
 //   2. cstage_multi_kernel: per C-row of z, the forward C-DFT, then for
 //      each response the product and the inverse C-DFT, into out[k]
 //      (fft_creg.cuh: creg_table, creg_rows);
-//   3. col_dft128_kernel: conj T2 and inverse B, in place on out.
+//   3. breg_inv_kernel: conj T2 and inverse B, in place on out.
 //
-// The split stages (kernels 6, 7, 10 in fft_split.cu) are passes 1-2 and
-// 2-3 of the same design with the spectrum stored in between, on the same
-// register C pass.
+// The B passes (fft_breg.cuh) run the 128-point DFT along b in registers on
+// fft_areg.cuh's transform, the forward by swapping real and imaginary
+// parts, one exchange through shared memory and one barrier a block, T2 on
+// the registers from the plan's tables.  The split stages (kernels 6, 7, 10
+// in fft_split.cu) are passes 1-2 and 2-3 of the same design with the
+// spectrum stored in between, on the same register C pass; their B passes
+// still run fft128.cuh's col_dft128_kernel.
 //
 // Bound on an H100: device-memory bytes.  The fused bound (x read once, K
 // responses read once, K outputs written once) at the 180 s slice's shapes
 // (R = 8, nfft = 2^23) is 1.14 GB (0.34 ms at 3.35 TB/s) at K = 1, 1.75 GB
-// (0.52 ms) at K = 2 and 2.95 GB (0.88 ms) at K = 4.  The C pass alone
-// moves exactly those bytes (z read once, each response and output plane
-// streamed once), so its bound is the same 0.34 / 0.52 / 0.88 ms; the two B
-// passes add the scratch round trip (2 planes written and read, 1.07 GB)
-// and the outputs' second trip through pass 3 (2K planes read and written
-// again).  A cluster-fused design that keeps the tile on chip is later
-// work.
+// (0.52 ms) at K = 2 and 2.95 GB (0.88 ms) at K = 4.  The three passes move
+// more, each reading and writing its planes once:
+//
+//   pass 1: x read, z written: 4 planes of R rows, 1.07 GB (0.32 ms);
+//   pass 2: z read, K responses read, K outputs written: the fused bytes,
+//           so its bound is the same 0.34 / 0.52 / 0.88 ms;
+//   pass 3: the K outputs read and written again: 4K planes, K x 1.07 GB
+//           (K x 0.32 ms).
+//
+// So three passes cannot go under 0.98 / 1.48 / 2.48 ms at K = 1 / 2 / 4.
+// A cluster-fused design that keeps the tile on chip is later work.
 //
 // The C pass (fft_creg.cuh) keeps a C-row's points in registers, one warp
 // a row, in the JAX kernel's own factorisation, so the spectrum comes out
@@ -53,7 +61,7 @@
 // parameter (one instance per log2 C in 5..10, dispatch_log_c); blocks of
 // 4 warps walk the C-rows grid-stride, as many as fit on the card at once
 // (launch_c_pass).
-#include "fft128.cuh"
+#include "fft_breg.cuh"
 #include "fft_creg.cuh"
 
 using namespace amw_fft;
@@ -81,14 +89,11 @@ int run_bccb(const float* xr, const float* xi, const float* resps,
   if (R <= 0 || K <= 0) return 0;
   const int logC = c_log2(C);
   if (logC < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long bc = static_cast<long long>(kN) * C;
-  const long long nfft = kN * bc;
-  const int strips = C / kCols;
+  const long long nfft = static_cast<long long>(kAregRows) * kAregRows * C;
+  const long long mats = static_cast<long long>(R) * kAregRows;
 
-  col_dft128_kernel<false, false, kOutPlanes>
-      <<<R * kN * strips, kThreads, 0, st>>>(xr, xi, bc, bc, R * kN, C, t2r,
-                                             t2i, zr, zi, 0, 1.0f);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_b_pass(false, xr, xi, t2r, t2i, zr, zi, mats, C, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long rows = R * (nfft >> logC);
@@ -98,11 +103,8 @@ int run_bccb(const float* xr, const float* xi, const float* resps,
   });
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  col_dft128_kernel<true, false, kOutPlanes>
-      <<<K * R * kN * strips, kThreads, 0, st>>>(
-          out_r, out_i, bc, bc, K * R * kN, C, it2r, it2i, out_r, out_i, 0,
-          1.0f);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_b_pass(true, out_r, out_i, it2r, it2i, out_r,
+                                        out_i, K * mats, C, st));
 }
 
 }  // namespace

@@ -30,8 +30,11 @@ Phases, each printing JSON lines:
              yardstick; the five B/C kernels (6-10) also their C pass
              alone (``cstage_multi_kernel``, ``cstage_fwd_kernel``,
              ``cstage_inv_kernel``: torch.profiler over 10 launches)
-             beside its bound; the box and env-gain kernels also at the 5 s
-             batch's shapes (16 rows of 220 500 samples); the env-gain
+             beside its bound, 8 and 9 also each B pass alone
+             (``breg_fwd_kernel``, ``breg_inv_kernel``, from the same
+             profile) beside its bound; the box and env-gain kernels
+             also at the 5 s batch's shapes (16 rows of 220 500
+             samples); the env-gain
              kernel at both batches' card geometry (the main path's) and
              ``chunk_geometry``'s, each checked, timed at both at 180 s
              and at the card geometry at 5 s, each with its W, C, K and
@@ -280,7 +283,7 @@ from amw_tpu_torch.runtime import progress, service, settings_store
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.scripts import gen_demo_assets, htdemucs_gate
-from amw_tpu_torch.scripts.ab_bccb import kernel_ms
+from amw_tpu_torch.scripts.ab_bccb import kernel_ms, passes_ms
 from amw_tpu_torch.utils import wav
 from amw_tpu_torch.utils.metadata import embed_branding
 
@@ -683,17 +686,22 @@ def fft_kernels(dev, g, rows: int, n: int) -> dict:
              "(b, c) axis of [8, 128, 65536] complex", lib),
             K=K, library_rel_err=lib_err,
             split_extra_bytes=(4 * R2 * nfft + 4 * K * R2 * nfft) * 4,
-            # the C pass alone moves the fused bytes: its bound is the same
-            cpass_ms=kernel_ms(lambda a9=a9: fs.bccb_multi_cuda(*a9),
-                                      "cstage_multi_kernel"),
-            cpass_bound_ms=bound_ms(nbytes, 0)[0])
+            # the C pass alone moves the fused bytes: its bound is the same;
+            # each B pass reads and writes its planes once (K inverse)
+            **passes_ms(lambda a9=a9: fs.bccb_multi_cuda(*a9),
+                        "cstage_multi_kernel"),
+            cpass_bound_ms=bound_ms(nbytes, 0)[0],
+            bfwd_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0],
+            binv_bound_ms=bound_ms(4 * K * R2 * nfft * 4, 0)[0])
         if K == 2:
             out["fft_bccb_multi"] = entry
         else:
             out["fft_bccb_multi"]["k4"] = {
                 k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "max_rel_err",
-                                      "cpass_ms", "cpass_bound_ms")}
+                                      "cpass_ms", "cpass_bound_ms",
+                                      "bfwd_ms", "bfwd_bound_ms", "binv_ms",
+                                      "binv_bound_ms")}
     del xc
 
     # -- kernel 5, the packed inverse stage A with the join, K = 2
@@ -807,9 +815,10 @@ def phase_new_kernels(dev, tau_ns: float) -> dict:
          "of [8, 128, 65536] complex", lib8),
         max_rel_err_unpacked=rel_u,
         unpacked_ms=cuda_ms(lambda: fs.bc_cb_cuda(*u8)),
-        cpass_ms=kernel_ms(lambda: fs.bc_cb_cuda(*a8),
-                                  "cstage_multi_kernel"),
-        cpass_bound_ms=bound_ms(nbytes, 0)[0])
+        **passes_ms(lambda: fs.bc_cb_cuda(*a8), "cstage_multi_kernel"),
+        cpass_bound_ms=bound_ms(nbytes, 0)[0],
+        bfwd_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0],
+        binv_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0])
     del xc, Xr, Xi, Ur, Ui, x, a8, u8
 
     # -- kernel 12: K = 4 band spectra of one mono 180 s row
