@@ -1,11 +1,10 @@
 // 128-point DFTs along the columns of a [128, 32] tile in shared memory:
-// stage A of kernels 4 and 5 (fft_stage_a.cu) and the B passes of the split
-// stages, kernels 6, 7 and 10 (fft_split.cu; the Python side is
-// amw_tpu_torch/ops/fft_staged.py).  The fused round trips 8 and 9
-// (fft_bccb.cu) run their B passes on fft_breg.cuh and the reduce kernels
-// 11 and 12 (fft_reduce.cu) their inverse stage A on fft_areg.cuh: both the
-// register transform, 16 B of shared memory a sample and one barrier where
-// this one takes 128 B and 8.
+// stage A of kernels 4 and 5 (fft_stage_a.cu; the Python side is
+// amw_tpu_torch/ops/fft_staged.py), its last user.  The B passes of the
+// B/C kernels 6-10 (fft_split.cu, fft_bccb.cu) run on fft_breg.cuh and the
+// reduce kernels 11 and 12 (fft_reduce.cu) their inverse stage A on
+// fft_areg.cuh: both the register transform, 16 B of shared memory a
+// sample and one barrier where this one takes 128 B and 8.
 //
 // The JAX package contracts its A and B axes with a 128 x 128 DFT matrix on
 // the TPU's matrix unit (amw_tpu/ops/fft_pallas.py `_dot_l`).  On an H100 a
@@ -18,8 +17,7 @@
 // twiddles are sincospif of exact arguments.
 //
 // col_dft128_kernel is one such strip transform over a batch of [128, S]
-// matrices: stage A (S = B*C, twiddle t1 [128, S]) and the B passes of
-// fft_split.cu (S = C, twiddle T2 [128, C]).  Forward: DFT, then times the
+// matrices: stage A (S = B*C, twiddle t1 [128, S]).  Forward: DFT, then times the
 // twiddle of the output row.  Inverse: times the twiddle of the input row,
 // then the conjugate DFT, then `scale`.
 #pragma once

@@ -34,9 +34,10 @@
 // fft_areg.cuh's transform, the forward by swapping real and imaginary
 // parts, one exchange through shared memory and one barrier a block, T2 on
 // the registers from the plan's tables.  The split stages (kernels 6, 7, 10
-// in fft_split.cu) are passes 1-2 and 2-3 of the same design with the
-// spectrum stored in between, on the same register C pass; their B passes
-// still run fft128.cuh's col_dft128_kernel.
+// in fft_split.cu) run the same transforms with the spectrum stored in
+// between: 7 and 10 as passes 2-3 of this design, 6 as passes 1-2 fused
+// into one pass whose tile stays on chip in a thread-block cluster's
+// shared memory.
 //
 // Bound on an H100: device-memory bytes.  The fused bound (x read once, K
 // responses read once, K outputs written once) at the 180 s slice's shapes
@@ -51,7 +52,8 @@
 //           (K x 0.32 ms).
 //
 // So three passes cannot go under 0.98 / 1.48 / 2.48 ms at K = 1 / 2 / 4.
-// A cluster-fused design that keeps the tile on chip is later work.
+// A cluster-fused round trip that keeps the tile on chip, as kernel 6 does
+// (fft_split.cu), is later work.
 //
 // The C pass (fft_creg.cuh) keeps a C-row's points in registers, one warp
 // a row, in the JAX kernel's own factorisation, so the spectrum comes out

@@ -1,4 +1,6 @@
-// The B passes of the fused round trips (kernels 8 and 9, fft_bccb.cu): the
+// The B passes of the fused round trips (kernels 8 and 9, fft_bccb.cu) and
+// of the split stages (kernels 7 and 10 inverse, launch_b_pass; kernel 6
+// forward, breg_load and breg_strip inside its one pass, fft_split.cu): the
 // 128-point DFT along b of each [128, 32] column strip of the [128, C]
 // matrix of one (row, a'), with the twiddle T2[b', c] applied in registers,
 // on fft_areg.cuh's register transform in both signs.
@@ -75,6 +77,77 @@ __device__ __forceinline__ void breg_cmul(float& re, float& im, float cr,
   re = u;
 }
 
+// W_128^(g k1), k1 < 16, at w[g k1]: the entries areg_rows reads for warp
+// g.  Lane k1 of warp g writes its own, so the warp needs no block barrier
+// for it (its caller's __syncwarp suffices).
+__device__ __forceinline__ void breg_w128(float2* w, int g, int t) {
+  if (t < kAregI) {
+    float s, c;
+    sincospif(static_cast<float>(g * t) / (kAregRows / 2), &s, &c);
+    w[g * t] = make_float2(c, s);
+  }
+}
+
+// Thread (g, t)'s loads of a strip: rows g + 8 i (i < 16) at in_* + pos +
+// i * step.
+__device__ __forceinline__ void breg_load(const float* in_re,
+                                          const float* in_im, int pos,
+                                          int step, float (&re)[kAregI],
+                                          float (&im)[kAregI]) {
+#pragma unroll
+  for (int i = 0; i < kAregI; ++i) {
+    re[i] = in_re[pos + i * step];
+    im[i] = in_im[pos + i * step];
+  }
+}
+
+// The rest of a strip after breg_load: (inverse) conj T2 on the input rows,
+// the transform through `ex` (one block barrier inside), (forward) T2 on
+// the output rows; then store(j, zr, zi) for each of the thread's output
+// rows g + 8 j.  tw_* + pos + j * step is T2 (or conj T2) of row g + 8 j.
+// Every thread of the block calls it; `ex` may be reused only after a
+// further barrier.
+template <bool kInverse, typename Store>
+__device__ __forceinline__ void breg_strip(float (&re)[kAregI],
+                                           float (&im)[kAregI],
+                                           const float* __restrict__ tw_re,
+                                           const float* __restrict__ tw_im,
+                                           int pos, int step, AregExchange& ex,
+                                           const float2* w, int g, int t,
+                                           Store&& store) {
+  if (kInverse) {
+#pragma unroll
+    for (int i = 0; i < kAregI; ++i)
+      breg_cmul(re[i], im[i], __ldg(tw_re + pos + i * step),
+                __ldg(tw_im + pos + i * step));
+    areg_rows(re, im, ex, w, g, t);
+  } else {
+    areg_rows(im, re, ex, w, g, t);  // swap: the forward sign
+    // T2 of the output rows g + 8 j, into the registers just freed
+#pragma unroll
+    for (int j = 0; j < kAregI; ++j) {
+      re[j] = __ldg(tw_re + pos + j * step);
+      im[j] = __ldg(tw_im + pos + j * step);
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float zr[kAregG], zi[kAregG];
+    if (kInverse)
+      areg_cols(ex, g, h, t, zr, zi);
+    else
+      areg_cols(ex, g, h, t, zi, zr);  // swap back
+#pragma unroll
+    for (int k2 = 0; k2 < kAregG; ++k2) {
+      const int j = 2 * k2 + h;  // row k1 + 16 k2 = g + 8 j, k1 = g + 8 h
+      if (!kInverse) breg_cmul(zr[k2], zi[k2], re[j], im[j]);
+      store(j, zr[k2], zi[k2]);
+    }
+  }
+}
+
 // One block of a pass over Q matrices [128, C] (C a multiple of 32): in_*
 // -> out_*, which may be the same planes.  tw_*: T2 [128, C] (forward) or
 // conj T2 (kInverse).  Grid: Q * (C / 32) blocks of kAregThreads.
@@ -97,53 +170,16 @@ __device__ __forceinline__ void breg_pass(const float* in_re,
   const int step = kAregG * C;
 
   float re[kAregI], im[kAregI];
-#pragma unroll
-  for (int i = 0; i < kAregI; ++i) {
-    re[i] = in_re[base + pos + i * step];
-    im[i] = in_im[base + pos + i * step];
-  }
-  // areg_rows reads W_128^(g k1), k1 < 16, at [g k1]: lane k1 writes it
-  // into its warp's own table, so the warp needs no block barrier for it
-  if (t < kAregI) {
-    float s, c;
-    sincospif(static_cast<float>(g * t) / (kAregRows / 2), &s, &c);
-    w128[g][g * t] = make_float2(c, s);
-  }
+  breg_load(in_re + base, in_im + base, pos, step, re, im);
+  breg_w128(w128[g], g, t);
   __syncwarp();
-  if (kInverse) {
-#pragma unroll
-    for (int i = 0; i < kAregI; ++i)
-      breg_cmul(re[i], im[i], __ldg(tw_re + pos + i * step),
-                __ldg(tw_im + pos + i * step));
-    areg_rows(re, im, ex, w128[g], g, t);
-  } else {
-    areg_rows(im, re, ex, w128[g], g, t);  // swap: the forward sign
-    // T2 of the output rows g + 8 j, into the registers just freed
-#pragma unroll
-    for (int j = 0; j < kAregI; ++j) {
-      re[j] = __ldg(tw_re + pos + j * step);
-      im[j] = __ldg(tw_im + pos + j * step);
-    }
-  }
-  __syncthreads();
-
   float* yr = out_re + base;
   float* yi = out_im + base;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float zr[kAregG], zi[kAregG];
-    if (kInverse)
-      areg_cols(ex, g, h, t, zr, zi);
-    else
-      areg_cols(ex, g, h, t, zi, zr);  // swap back
-#pragma unroll
-    for (int k2 = 0; k2 < kAregG; ++k2) {
-      const int j = 2 * k2 + h;  // row k1 + 16 k2 = g + 8 j, k1 = g + 8 h
-      if (!kInverse) breg_cmul(zr[k2], zi[k2], re[j], im[j]);
-      yr[pos + j * step] = zr[k2];
-      yi[pos + j * step] = zi[k2];
-    }
-  }
+  breg_strip<kInverse>(re, im, tw_re, tw_im, pos, step, ex, w128[g], g, t,
+                       [&](int j, float zr, float zi) {
+                         yr[pos + j * step] = zr;
+                         yi[pos + j * step] = zi;
+                       });
 }
 
 // The passes as kernels of their own names (a profiler tells them apart).

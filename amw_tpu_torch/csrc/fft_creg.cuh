@@ -39,10 +39,12 @@
 // The pieces, one register layout: creg_forward (natural C-row ->
 // registers), store_stored / load_stored (registers <-> the stored
 // order), creg_responses (for k < K: the product with response k, the
-// inverse, the natural C-row into output k).  The three row walks compose
-// them: creg_rows (8, 9), creg_fwd_rows (6), creg_inv_rows (7, 10).  Their
-// kernels are instances per log2 C launched by launch_c_pass, a grid of
-// the blocks resident on the card walking the C-rows.
+// inverse, the natural C-row into output k).  Two row walks compose them:
+// creg_rows (8, 9) and creg_inv_rows (7, 10); their kernels are instances
+// per log2 C launched by launch_c_pass, a grid of the blocks resident on
+// the card walking the C-rows.  Kernel 6 (fft_split.cu) runs creg_forward
+// on the C-rows of a tile in shared memory and store_stored to the stored
+// spectrum, inside its one pass.
 //
 // Why shuffles and not a transpose through shared memory: with P points a
 // lane the 32-point step is five exchanges of 2P floats and no barrier;
@@ -454,24 +456,6 @@ __device__ __forceinline__ void creg_rows(
     creg_forward<kLogC>(zr + base, zi + base, L, tw, xr, xi);
     creg_responses<kLogC, true>(xr, xi, resps + (base & (nfft - 1)), nfft,
                                 K, L, tw, out_r + base, out_i + base, plane);
-  }
-}
-
-// Kernel 6: the forward C-DFT of each C-row of y*, written back over it in
-// the stored order.  In place is safe: a warp holds its whole C-row in
-// registers before it writes, and the stored order permutes only within
-// that C-row.
-template <int kLogC>
-__device__ __forceinline__ void creg_fwd_rows(float* yr, float* yi,
-                                              long long rows,
-                                              const float2* tw) {
-  using G = CReg<kLogC>;
-  const CRegLane L = creg_lane<kLogC>();
-  for (long long g = creg_first_row(); g < rows; g += creg_row_step()) {
-    const long long base = g * G::C;
-    float xr[G::P], xi[G::P];
-    creg_forward<kLogC>(yr + base, yi + base, L, tw, xr, xi);
-    store_stored<kLogC>(xr, xi, L, yr + base, yi + base);
   }
 }
 

@@ -520,10 +520,11 @@ bc_cb_cuda.launches = 0
 
 
 def bc_cuda(xr, xi, nfft: int, tables):
-    """Launch the forward B+C kernels (replaces ``fft_pallas._stage_bc``):
+    """Launch the forward B+C kernel (replaces ``fft_pallas._stage_bc``):
     stage-A output ``[R, nfft]`` planes → the stored (permuted) spectrum.
-    Two passes: forward B with T2 into the output, then per C-row the
-    forward C-DFT in place."""
+    One pass: each (row, a') matrix's [128, C] tile stays on chip in a
+    thread-block cluster's shared memory between the forward B (with T2)
+    and the forward C-DFT."""
     from . import _cuda
 
     t2 = _bc_args("bc_cuda", xr, xi, None, None, nfft, tables, (False,))

@@ -27,12 +27,14 @@ Phases, each printing JSON lines:
              [16, 88 200], each checked and timed), with CUDA-event
              times (median of 20; the envelope kernels' plain versions one
              run after a warm-up), the bound and a PyTorch library
-             yardstick; the five B/C kernels (6-10) also their C pass
-             alone (``cstage_multi_kernel``, ``cstage_fwd_kernel``,
-             ``cstage_inv_kernel``: torch.profiler over 10 launches)
-             beside its bound, 8 and 9 also each B pass alone
-             (``breg_fwd_kernel``, ``breg_inv_kernel``, from the same
-             profile) beside its bound; the box and env-gain kernels
+             yardstick; the B/C kernels 7-10 also their C pass alone
+             (``cstage_multi_kernel``, ``cstage_inv_kernel``:
+             torch.profiler over 10 launches) beside its bound, 8 and 9
+             also each B pass alone (``breg_fwd_kernel``,
+             ``breg_inv_kernel``, from the same profile), 7 and 10 their
+             inverse B pass (``breg_inv_kernel``) beside its bound;
+             kernel 6 its one pass alone (``bc_onepass_kernel``, beside
+             the kernel's bound); the box and env-gain kernels
              also at the 5 s batch's shapes (16 rows of 220 500
              samples); the env-gain
              kernel at both batches' card geometry (the main path's) and
@@ -51,7 +53,12 @@ Phases, each printing JSON lines:
              |y| <= 1, padded tails zero, integrated loudness within 1 LU
              of -14), parity
              with the port's plain path on the CPU (<= -90 dBFS, <= 0.1 LU;
-             at 180 s for the padded 97.5 s track), and the
+             at 180 s for the padded 97.5 s track; every run's CPU path
+             runs in one of two worker processes, ``CpuParity``, all of
+             them submitted after the kernel and entry phases from the
+             one table of runs that the card runs read too,
+             ``parity_runs``, collected by the run that checks them, and
+             paused in every timed loop), and the
              steady-state realtime factor; a profile of the 180 s batch
              (device time by kernel, idle share);
 6. v1_split — the same 180 s batch on the split route
@@ -219,7 +226,10 @@ Phases, each printing JSON lines:
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
 
-Every phase line carries ``t_s``, the seconds since the script's imports.
+Every phase line carries ``t_s``, the seconds since the script's imports,
+and ``phase_s``, its host seconds (since the line before, where the phase
+states none of its own); the v1 and v2 runs also ``cpu_parity_wait_s``,
+the seconds they waited for their CPU path's result.
 Any failure raises (non-zero exit).  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of the JAX package.
@@ -229,10 +239,12 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import functools
 import json
 import os
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -283,7 +295,8 @@ from amw_tpu_torch.runtime import progress, service, settings_store
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.scripts import gen_demo_assets, htdemucs_gate
-from amw_tpu_torch.scripts.ab_bccb import kernel_ms, passes_ms
+from amw_tpu_torch.scripts.ab_bccb import (B_INV, kernel_ms, pass_ms,
+                                           passes_ms, profile_ms)
 from amw_tpu_torch.utils import wav
 from amw_tpu_torch.utils.metadata import embed_branding
 
@@ -354,11 +367,17 @@ COUNTERS = {
 
 
 T_START = time.perf_counter()
+_LAST_PHASE = [T_START]  # when the last phase line was emitted
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase line gets ``t_s`` (seconds since the
+    imports) and, unless it carries its own, ``phase_s`` (host seconds
+    since the previous phase line)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - T_START}
+        now = time.perf_counter()
+        obj = {"phase_s": now - _LAST_PHASE[0], **obj, "t_s": now - T_START}
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -406,19 +425,21 @@ def standard_band_maps() -> list:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs, with the CPU
+    parity workers paused."""
+    with PARITY.paused():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -918,6 +939,15 @@ def phase_new_kernels(dev, tau_ns: float) -> dict:
     return out
 
 
+def inv_passes_ms(fn) -> dict:
+    """Kernel 7's or 10's two passes alone, ms a launch, from one profile:
+    the C pass and the inverse B pass; raises where the profiler recorded
+    no launch of either."""
+    table = profile_ms(fn)
+    return {"cpass_ms": pass_ms(table, "cstage_inv_kernel"),
+            "binv_ms": pass_ms(table, *B_INV)}
+
+
 def phase_split_kernels(dev) -> dict:
     """The split route's three kernels against their plain versions at the
     split v1 batch's shapes (nfft = 2^23, the packed stage-A output of 16
@@ -958,9 +988,8 @@ def phase_split_kernels(dev) -> dict:
         4 * R2 * nfft * 4 + t2_bytes, R2 * nfft * (5 * lg + 6),
         ("torch.fft.fft along the joint (b, c) axis of [8, 128, 65536] "
          "complex", lambda: torch.fft.fft(xc, dim=-1)),
-        # the C pass alone moves the kernel's bytes but the T2 table
-        cpass_ms=kernel_ms(lambda: fs.bc_cuda(*a6), "cstage_fwd_kernel"),
-        cpass_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0])
+        # the one pass alone (torch.profiler), beside the kernel's bound
+        onepass_ms=kernel_ms(lambda: fs.bc_cuda(*a6), "bc_onepass_kernel"))
     # the yardstick's spectrum in natural order, the responses gathered
     Xn = torch.fft.fft(xc, dim=-1)
     del xc
@@ -1014,8 +1043,9 @@ def phase_split_kernels(dev) -> dict:
         unpacked_ms=cuda_ms(lambda: fs.cb_cuda(*u7)),
         unpacked_bound_ms=bound_ms((4 * nfft + 2 * nfft) * 4 + t2_bytes,
                                    nfft * (6 + 5 * lg + 6))[0],
-        cpass_ms=kernel_ms(lambda: fs.cb_cuda(*a7), "cstage_inv_kernel"),
-        cpass_bound_ms=bound_ms((4 * R2 * nfft + 2 * nfft) * 4, 0)[0])
+        **inv_passes_ms(lambda: fs.cb_cuda(*a7)),
+        cpass_bound_ms=bound_ms((4 * R2 * nfft + 2 * nfft) * 4, 0)[0],
+        binv_bound_ms=bound_ms(4 * R2 * nfft * 4, 0)[0])
     del Ur, Ui, u7
 
     # -- kernel 10: one stored spectrum under K responses
@@ -1041,16 +1071,17 @@ def phase_split_kernels(dev) -> dict:
             R2 * nfft * K * (6 + 5 * lg + 6),
             ("K x (mul + torch.fft.ifft) along the joint (b, c) axis of "
              "[8, 128, 65536] complex", lib10), K=K,
-            cpass_ms=kernel_ms(lambda a10=a10: fs.cb_multi_cuda(*a10),
-                               "cstage_inv_kernel"),
-            cpass_bound_ms=bound_ms(nbytes, 0)[0])
+            **inv_passes_ms(lambda a10=a10: fs.cb_multi_cuda(*a10)),
+            cpass_bound_ms=bound_ms(nbytes, 0)[0],
+            binv_bound_ms=bound_ms(4 * K * R2 * nfft * 4, 0)[0])
         if K == 2:
             out["fft_cb_multi"] = entry
         else:
             out["fft_cb_multi"]["k4"] = {
                 k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "library_ms", "max_rel_err",
-                                      "cpass_ms", "cpass_bound_ms")}
+                                      "cpass_ms", "cpass_bound_ms",
+                                      "binv_ms", "binv_bound_ms")}
     return out
 
 
@@ -1162,18 +1193,207 @@ def valid_lengths(dur: float, valid_s, batch: int) -> np.ndarray:
     return nv
 
 
-def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
-                reps: int = 10, label: str | None = None,
-                target_window: bool = True, **v1_kw):
-    """Master 8 stereo tracks of ``dur`` s (the last two bucket-padded to
-    ``valid_s``) through the v1 ``standard`` chain on the card (``v1_kw``:
-    more options of ``build_v1_pipeline``).  ``expect``: the launches of
-    each kernel on one batch.  ``cpu_tracks``: the tracks run again on the
-    port's CPU path for parity (None: all).  ``target_window``: hold every
-    track's loudness within 1 LU of the target.  Returns the launch
-    counts, a steady-state step for the profile, its wall time and the
-    output."""
-    label = label or f"v1_{dur:g}s"
+def batch_rows(dur: float, valid_s, batch: int, channels: int, seed0: int,
+               idx: tuple) -> tuple:
+    """The tracks ``idx`` of :func:`make_batch`'s batch and their valid
+    lengths, made alone (equal to ``make_batch(...)`` indexed by ``idx``)."""
+    nv = valid_lengths(dur, valid_s, batch)[list(idx)]
+    x = np.stack([make_track(SR, dur, seed=seed0 + i)[:channels]
+                  for i in idx])
+    for j in range(len(idx)):
+        x[j, :, nv[j]:] = 0.0
+    return x, nv
+
+
+def cpu_v1(dur: float, valid_s, idx: tuple, v1_kw: dict) -> tuple:
+    """A v1 run's plain path on the CPU (:func:`phase_slice`'s parity):
+    the tracks ``idx`` of its batch through the chain built on the CPU.
+    Returns the output, its loudness and the run's seconds."""
+    x, nv = batch_rows(dur, valid_s, BATCH, 2, 0, idx)
+    spec = GraphSpec(sr=SR, n=int(SR * dur), channels=2)
+    params, fn, _ = build_v1_pipeline(spec, target_lufs=TARGET_LUFS,
+                                      style="standard", device="cpu",
+                                      **v1_kw)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y = fn(torch.from_numpy(x), params, torch.from_numpy(nv)).numpy()
+        cpu_s = time.perf_counter() - t0
+    return y, track_lufs(y, nv), cpu_s
+
+
+def cpu_v2(dur: float, valid_s, batch: int, channels: int, idx: tuple,
+           style: str, config, pro: dict) -> tuple:
+    """A v2 run's plain path on the CPU (:func:`phase_v2`'s parity): the
+    tracks ``idx`` of its batch through the job graph built on the CPU.
+    Returns the graph's outputs (numpy), the output's loudness and the
+    run's seconds."""
+    x, nv = batch_rows(dur, valid_s, batch, channels, 10, idx)
+    spec = GraphSpec(sr=SR, n=int(SR * dur), channels=channels)
+    params, fn, _ = build_v2_job_graph(spec, config, pro,
+                                       STYLE_CONFIGS[style]["lufs"], style,
+                                       device="cpu")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        res = fn(torch.from_numpy(x), params, torch.from_numpy(nv))
+        cpu_s = time.perf_counter() - t0
+    res = {k: v.numpy() for k, v in res.items()}
+    return res, track_lufs(res["out"], nv), cpu_s
+
+
+def _parity_worker(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+class CpuParity:
+    """The runs' plain paths on the CPU, computed by worker processes
+    (spawned, so they never touch CUDA) while the card phases run: each
+    run's job is submitted under its label at the start and collected by
+    that label.  Inside :meth:`paused` the workers are stopped, so that a
+    timed loop has the host to itself."""
+
+    def __init__(self) -> None:
+        self.pool = None
+        self.pids: list = []
+        self.jobs: dict = {}
+        self.depth = 0
+
+    def start(self, workers: int, threads: int) -> None:
+        import multiprocessing
+
+        before = set(multiprocessing.active_children())
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_parity_worker, initargs=(threads,))
+        self.pids = [p.pid for p in set(multiprocessing.active_children())
+                     - before]
+        check(len(self.pids) == workers,
+              f"CPU parity: {len(self.pids)} workers, expected {workers}")
+
+    def submit(self, label: str, fn, args: tuple) -> None:
+        self.jobs[label] = self.pool.apply_async(fn, args)
+
+    def result(self, label: str):
+        check(label in self.jobs, f"{label}: no CPU parity job submitted")
+        return self.jobs.pop(label).get()
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The workers stopped (SIGSTOP) inside the block and continued
+        (SIGCONT) after it, also when it raises; nested blocks stop them
+        once."""
+        self.depth += 1
+        if self.depth == 1:
+            for pid in self.pids:
+                os.kill(pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            self.depth -= 1
+            if self.depth == 0:
+                for pid in self.pids:
+                    os.kill(pid, signal.SIGCONT)
+
+    def stop(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+        self.pids = []
+        self.jobs.clear()
+
+
+PARITY = CpuParity()
+
+
+@dataclasses.dataclass(frozen=True)
+class V1Run:
+    """A v1 run (:func:`phase_slice`): 8 stereo tracks of ``dur`` s, the
+    last two bucket-padded to ``valid_s``; ``cpu_tracks`` run again on the
+    port's CPU path for parity; ``v1_kw``: more options of
+    ``build_v1_pipeline``.  The card run and its CPU parity both read
+    these fields."""
+    label: str
+    dur: float
+    valid_s: tuple
+    cpu_tracks: tuple = tuple(range(BATCH))
+    v1_kw: dict = dataclasses.field(default_factory=dict)
+
+    def parity(self) -> tuple:
+        return cpu_v1, (self.dur, self.valid_s, self.cpu_tracks, self.v1_kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class V2Run:
+    """A v2 run (:func:`phase_v2`): ``batch`` tracks of ``dur`` s with
+    ``channels`` channels at ``style`` and its target loudness, through
+    the chain config of :func:`options_config` with ``options``, else
+    ``config`` (None: the default), and the pro set ``pro``;
+    ``cpu_tracks`` run again on the port's CPU path for parity."""
+    label: str
+    dur: float
+    valid_s: tuple
+    batch: int
+    channels: int
+    style: str
+    cpu_tracks: tuple
+    options: bool = False
+    config: dict | None = None
+    pro: dict = dataclasses.field(default_factory=lambda: V2_PRO)
+
+    def chain_config(self):
+        return options_config() if self.options else self.config
+
+    def parity(self) -> tuple:
+        return cpu_v2, (self.dur, self.valid_s, self.batch, self.channels,
+                        self.cpu_tracks, self.style, self.chain_config(),
+                        self.pro)
+
+
+def parity_runs(ref_env: np.ndarray) -> dict:
+    """Every v1 and v2 run of :func:`run_phases` by label, in the order it
+    checks them: the one place each run's batch, options and parity
+    tracks are written."""
+    last = (BATCH - 1,)
+    runs = [V1Run("v1_5s", *SHORT),
+            V1Run("v1_180s", *LONG, last),
+            V2Run("v2_180s", *LONG, BATCH, 2, "standard", last),
+            V2Run("v2_mono_180s", LONG[0], (), 1, 1, "podcast", (0,)),
+            V2Run("v2_clip_2s", SHORT_CLIP_S, (), 1, 2, "edm", (0,)),
+            V2Run("v2_options_180s", LONG[0], (), 1, 2, "standard", (0,),
+                  options=True),
+            V2Run("v2_denoise_180s", *LONG, BATCH, 2, "standard", last,
+                  pro=V2_DENOISE_PRO),
+            V1Run("v1_reference_180s", *LONG, last,
+                  {"denoise_strength": V1_DENOISE, "reference_env": ref_env}),
+            V2Run("v2_finish_180s", *LONG, BATCH, 2, "standard", last,
+                  config=finish_config(), pro=V2_FINISH_PRO),
+            V2Run("options_finish_180s", LONG[0], (), 1, 2, "standard",
+                  (0,), config=options_finish_config(), pro={})]
+    return {run.label: run for run in runs}
+
+
+def steady_wall(step, reps: int) -> float:
+    """Seconds a call of ``step`` in the steady state: two calls, then the
+    mean of ``reps``, with the CPU parity workers paused."""
+    with PARITY.paused():
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+
+def phase_slice(dev, run: V1Run, expect: dict, reps: int = 10,
+                target_window: bool = True):
+    """Master the batch of ``run`` through the v1 ``standard`` chain on the
+    card, its parity tracks held to their CPU path (``PARITY``).
+    ``expect``: the launches of each kernel on one batch.
+    ``target_window``: hold every track's loudness within 1 LU of the
+    target.  Returns the launch counts, a steady-state step for the
+    profile, its wall time and the output."""
+    label, dur, valid_s = run.label, run.dur, run.valid_s
     n = int(SR * dur)
     t0 = time.perf_counter()
     xb, nv = make_batch(dur, valid_s, BATCH, 2)
@@ -1183,7 +1403,7 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
     t0 = time.perf_counter()
     params, fn, names = build_v1_pipeline(spec, target_lufs=TARGET_LUFS,
                                           style="standard", device=dev,
-                                          **v1_kw)
+                                          **run.v1_kw)
     build_s = time.perf_counter() - t0
     x_d = torch.from_numpy(xb).to(dev)
     nv_d = torch.from_numpy(nv).to(dev)
@@ -1213,7 +1433,7 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
             check(bool(np.all(y_np[i, :, nv[i]:] == 0.0)),
                   f"{label}: padded tail of track {i} not zero")
 
-        idx = list(range(BATCH)) if cpu_tracks is None else list(cpu_tracks)
+        idx = list(run.cpu_tracks)
         l_gpu = track_lufs(y_np, nv)
         check(bool(np.all(np.isfinite(l_gpu))), f"{label}: loudness "
               f"{l_gpu.tolist()}")
@@ -1223,31 +1443,18 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
               f"{TARGET_LUFS}")
 
         # the port's plain path on the CPU, same input
-        p_cpu, fn_cpu, _ = build_v1_pipeline(spec, target_lufs=TARGET_LUFS,
-                                             style="standard", device="cpu",
-                                             **v1_kw)
         t0 = time.perf_counter()
-        y_cpu = fn_cpu(torch.from_numpy(xb[idx]), p_cpu,
-                       torch.from_numpy(nv[idx])).numpy()
-        cpu_s = time.perf_counter() - t0
-        del p_cpu, fn_cpu
+        y_cpu, l_cpu, cpu_s = PARITY.result(label)
+        wait_s = time.perf_counter() - t0
         err = float(np.max(np.abs(y_np[idx] - y_cpu)))
         err_db = 20 * np.log10(max(err, 1e-30))
-        d_lu = float(np.max(np.abs(l_gpu[idx] - track_lufs(y_cpu, nv[idx]))))
+        d_lu = float(np.max(np.abs(l_gpu[idx] - l_cpu)))
         check(err_db <= PARITY_DBFS,
               f"{label}: GPU vs CPU max error {err_db:.1f} dBFS")
         check(d_lu <= PARITY_LU,
               f"{label}: GPU vs CPU loudness delta {d_lu} LU")
 
-        # steady state
-        for _ in range(2):
-            fn(x_d, params, nv_d)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(x_d, params, nv_d)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
+        wall = steady_wall(lambda: fn(x_d, params, nv_d), reps)
 
     emit({"phase": "slice", "run": label, "stages": names, "batch": BATCH,
           "track_s": dur, "n_valid": nv.tolist(), "data_s": data_s,
@@ -1256,8 +1463,8 @@ def phase_slice(dev, dur: float, valid_s, expect: dict, cpu_tracks=None,
           "peak_device_gb": peak_gb, "lufs": l_gpu.tolist(),
           "target_window": target_window, "cpu_parity_tracks": idx, "max_err_vs_cpu": err,
           "max_err_vs_cpu_dbfs": err_db, "max_lu_delta_vs_cpu": d_lu,
-          "cpu_plain_s": cpu_s, "wall_s_per_batch": wall,
-          "realtime_factor": BATCH * dur / wall})
+          "cpu_plain_s": cpu_s, "cpu_parity_wait_s": wait_s,
+          "wall_s_per_batch": wall, "realtime_factor": BATCH * dur / wall})
     return launches, (lambda: fn(x_d, params, nv_d)), wall, y_np
 
 
@@ -1405,24 +1612,21 @@ def staged_plans():
             setattr(fs, attr, f)
 
 
-def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
-             channels: int, style: str, cpu_tracks, reps: int = 5,
-             options: bool = False, pro: dict = V2_PRO,
-             config: dict | None = None, exciter_os: int = 0,
+def phase_v2(dev, run: V2Run, reps: int = 5, exciter_os: int = 0,
              tp_ceiling_db: float | None = None, keep: dict | None = None):
-    """Master ``batch`` tracks of ``dur`` s through the v2 job (default
-    chain config at ``style`` and its target loudness, the pro set ``pro``;
-    with ``options`` the config of :func:`options_config`, else ``config``
-    where given, whose exciter runs at ``exciter_os``) on the card: launch
-    counts against :func:`job_expected`, output checks, parity of
-    ``cpu_tracks`` with the port's CPU path, the steady-state realtime
-    factor; with ``tp_ceiling_db`` also every output's true peak
+    """Master the batch of ``run`` through the v2 job on the card (its
+    chain config's exciter at ``exciter_os``): launch counts against
+    :func:`job_expected`, output checks, parity of its parity tracks with
+    the port's CPU path (``PARITY``), the steady-state realtime factor; with ``tp_ceiling_db`` also every output's true peak
     (``meters.true_peak_dbfs`` per track on the card) against that ceiling.
     ``keep``: where given, ``keep[label]`` is set to the graph's ``(spec,
     params, fn)``.  Returns the launch counts, a steady-state step, its wall time, the
     stage names and the output (host)."""
+    label, dur, valid_s, batch, channels, style, options, pro = (
+        run.label, run.dur, run.valid_s, run.batch, run.channels, run.style,
+        run.options, run.pro)
     n = int(SR * dur)
-    config = options_config() if options else config
+    config = run.chain_config()
     target = STYLE_CONFIGS[style]["lufs"]
     t0 = time.perf_counter()
     xb, nv = make_batch(dur, valid_s, batch, channels, seed0=10)
@@ -1482,19 +1686,13 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
                   f"{label}: padded tail of track {i} not zero")
 
         # the port's plain path on the CPU, same input
-        idx = list(cpu_tracks)
-        p_cpu, fn_cpu, _ = build_v2_job_graph(spec, config, pro, target,
-                                              style, device="cpu")
+        idx = list(run.cpu_tracks)
         t0 = time.perf_counter()
-        res_c = fn_cpu(torch.from_numpy(xb[idx]), p_cpu,
-                       torch.from_numpy(nv[idx]))
-        cpu_s = time.perf_counter() - t0
-        del p_cpu, fn_cpu
-        res_c = {k: v.numpy() for k, v in res_c.items()}
+        res_c, l_cpu, cpu_s = PARITY.result(label)
+        wait_s = time.perf_counter() - t0
         err = float(np.max(np.abs(y[idx] - res_c["out"])))
         err_db = 20 * np.log10(max(err, 1e-30))
-        d_lu = float(np.max(np.abs(track_lufs(y[idx], nv[idx])
-                                   - track_lufs(res_c["out"], nv[idx]))))
+        d_lu = float(np.max(np.abs(track_lufs(y[idx], nv[idx]) - l_cpu)))
         d_meter = max(float(np.max(np.abs(res[k][idx] - res_c[k])))
                       for k in ("before_lufs", "after_lufs"))
         check(err_db <= PARITY_DBFS,
@@ -1503,14 +1701,7 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
         check(d_meter <= METER_LU,
               f"{label}: GPU vs CPU before/after loudness delta {d_meter}")
 
-        for _ in range(2):
-            fn(x_d, params, nv_d)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(x_d, params, nv_d)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
+        wall = steady_wall(lambda: fn(x_d, params, nv_d), reps)
 
     emit({"phase": "v2", "run": label, "stages": names, "style": style,
           "config": ("options" if options else
@@ -1527,7 +1718,8 @@ def phase_v2(dev, label: str, dur: float, valid_s, batch: int,
           "cpu_parity_tracks": idx, "max_err_vs_cpu": err,
           "max_err_vs_cpu_dbfs": err_db, "max_lu_delta_vs_cpu": d_lu,
           "max_meter_delta_vs_cpu": d_meter, "cpu_plain_s": cpu_s,
-          "true_peak_dbtp": tp_db, "wall_s_per_batch": wall,
+          "cpu_parity_wait_s": wait_s, "true_peak_dbtp": tp_db,
+          "wall_s_per_batch": wall,
           "realtime_factor": batch * dur / wall})
     if keep is not None:
         keep[label] = (spec, params, fn, names)
@@ -1573,14 +1765,7 @@ def phase_v1_split(step, y_fused: np.ndarray, nv: np.ndarray,
               f"expected {expect}")
         y_np = y.cpu().numpy()
         del y
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
+        wall = steady_wall(step, reps)
     check(bool(np.all(np.isfinite(y_np))), "split route: non-finite output")
     err = float(np.max(np.abs(y_np - y_fused)))
     err_db = 20 * np.log10(max(err, 1e-30))
@@ -1696,10 +1881,11 @@ def phase_analyze(dev) -> dict:
                          lambda: lufs_analyze_tool(x, SR, device=dev))):
                     call()
                     ts = []
-                    for _ in range(5):
-                        t0 = time.perf_counter()
-                        call()  # ends in a copy to the host: synchronous
-                        ts.append(time.perf_counter() - t0)
+                    with PARITY.paused():
+                        for _ in range(5):
+                            t0 = time.perf_counter()
+                            call()  # ends in a copy to the host: synchronous
+                            ts.append(time.perf_counter() - t0)
                     walls[name] = statistics.median(ts)
                 if run == "analyze_180s":
                     phase_profile(lambda: lufs_analyze_tool(x, SR,
@@ -1813,12 +1999,13 @@ def phase_export(dev, y: np.ndarray, reps: int = 3) -> None:
             check(got > 3.0 and 0.3 < got / want < 3.0,
                   f"export: {kind} noise not high-passed: {shaped[kind]}")
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(reps):
-            export(i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
+        with PARITY.paused():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(reps):
+                export(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
     dur = n / SR
     emit({"phase": "export", "rows": rows.shape[0], "n_in": n,
           "n_out": n_out, "sr_out": EXPORT_SR, "dither": "tpdf",
@@ -2269,8 +2456,9 @@ def phase_profile(step, wall_ms: float, label: str, reps: int = 3):
     per batch (None when the profiler saw no device event)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    with torch.no_grad(), PARITY.paused(), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
@@ -3959,14 +4147,34 @@ def main() -> None:
     kernels.update(phase_split_kernels(dev))
     phase_entry(dev)
 
+    # the v1 reference run's envelope (the card's), then every run's CPU
+    # parity in two worker processes, so that it runs while the card does;
+    # started after the kernel phases, whose CUDA-event times include the
+    # host's launch gaps, and paused in every timed loop after them
+    with torch.no_grad():
+        ref_env = spectral_envelope(torch.from_numpy(make_track(
+            SR, LONG[0], seed=REFERENCE_SEED)).to(dev)).cpu().numpy()
+    runs = parity_runs(ref_env)
+    PARITY.start(2, max(1, (torch.get_num_threads() - 2) // 2))
+    try:
+        for label, run in runs.items():
+            PARITY.submit(label, *run.parity())
+        run_phases(dev, kernels, runs)
+        check(not PARITY.jobs, f"CPU parity jobs never collected: "
+              f"{list(PARITY.jobs)}")
+    finally:
+        PARITY.stop()
+
+
+def run_phases(dev, kernels: dict, runs: dict) -> None:
     # v1: the 5 s batch runs no FFT kernel, the 180 s batch the staged FFT
     # (fused route, then split); neither runs an envelope follower or a
     # one-response pass
     idle = {name: 0 for name in COUNTERS}
-    phase_slice(dev, *SHORT,
+    phase_slice(dev, runs["v1_5s"],
                 expect={**idle, "box_smooth_same": 1, "env_gain": 1})
     v1, step, wall, y_v1 = phase_slice(
-        dev, *LONG, cpu_tracks=(BATCH - 1,), reps=5,
+        dev, runs["v1_180s"], reps=5,
         expect={**idle, "box_smooth_same": 1, "env_gain": 1,
                 "fft_stage_a": 3, "fft_bccb_multi": 3,
                 "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
@@ -3980,21 +4188,16 @@ def main() -> None:
     # v2: 8 x 180 s stereo, one mono 180 s track, one 2 s clip, and one
     # 180 s track with the chain-config options of slice 4
     graphs = {}  # the v2 graphs the engine's responses are held to
-    v2, step, wall, _, _ = phase_v2(dev, "v2_180s", *LONG, BATCH, 2,
-                                    "standard", cpu_tracks=(BATCH - 1,),
-                                    keep=graphs)
+    v2, step, wall, _, _ = phase_v2(dev, runs["v2_180s"], keep=graphs)
     phase_profile(step, wall * 1e3, "v2_180s", reps=2)
     del step
-    mono, _, _, _, _ = phase_v2(dev, "v2_mono_180s", LONG[0], (), 1, 1,
-                                "podcast", cpu_tracks=(0,), reps=3,
+    mono, _, _, _, _ = phase_v2(dev, runs["v2_mono_180s"], reps=3,
                                 keep=graphs)
-    clip, _, _, names, _ = phase_v2(dev, "v2_clip_2s", SHORT_CLIP_S, (), 1,
-                                    2, "edm", cpu_tracks=(0,), reps=10,
+    clip, _, _, names, _ = phase_v2(dev, runs["v2_clip_2s"], reps=10,
                                     keep=graphs)
     check({"chain:exciter", "chain:imager"} <= set(names),
           f"2 s edm clip: no exciter or imager in {names}")
-    phase_v2(dev, "v2_options_180s", LONG[0], (), 1, 2, "standard",
-             cpu_tracks=(0,), reps=3, options=True)
+    phase_v2(dev, runs["v2_options_180s"], reps=3)
 
     # the spectral stages: the v2 batch with the pro panel's denoiser, the
     # v1 batch with the denoiser and a reference match; no kernel of their
@@ -4003,30 +4206,24 @@ def main() -> None:
         return lambda spec, d: build_spectral_denoise(spec, strength, pct,
                                                       device=d)
 
-    _, step, wall, _, _ = phase_v2(dev, "v2_denoise_180s", *LONG, BATCH, 2,
-                                   "standard", cpu_tracks=(BATCH - 1,),
-                                   reps=2, pro=V2_DENOISE_PRO)
+    _, step, wall, _, _ = phase_v2(dev, runs["v2_denoise_180s"], reps=2)
     busy = phase_profile(step, wall * 1e3, "v2_denoise_180s", reps=1)
     del step
     phase_stages(dev, "v2_denoise_180s",
                  {"spectral_denoise": denoise(
                      *resolve_denoise(V2_DENOISE_PRO))}, 10, busy)
-    with torch.no_grad():
-        ref_env = spectral_envelope(torch.from_numpy(make_track(
-            SR, LONG[0], seed=REFERENCE_SEED)).to(dev)).cpu().numpy()
     # the reference match windows the wrapped zero-phase IR as the
     # reference does (pipeline.py:1599-1603, kept by amw_tpu and the
     # port), which leaves the output ~50 dB below the target: its loudness
     # is held to the port's CPU path, not to the target's window
     _, step, wall, _ = phase_slice(
-        dev, *LONG, cpu_tracks=(BATCH - 1,), reps=2,
-        label="v1_reference_180s", target_window=False,
-        denoise_strength=V1_DENOISE, reference_env=ref_env,
+        dev, runs["v1_reference_180s"], reps=2, target_window=False,
         expect={**idle, "box_smooth_same": 1, "env_gain": 1,
                 "fft_stage_a": 3, "fft_bccb_multi": 3,
                 "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
     busy = phase_profile(step, wall * 1e3, "v1_reference_180s", reps=1)
     del step
+    ref_env = runs["v1_reference_180s"].v1_kw["reference_env"]
     phase_stages(dev, "v1_reference_180s", {
         "spectral_denoise": denoise(V1_DENOISE, 15.0),
         "reference_match": lambda spec, d: build_reference_match(
@@ -4038,9 +4235,8 @@ def main() -> None:
     # with the exciter at 4x (cuFFT at 2^25), the hall reverb and the
     # limiter as a chain module; the DSP vocal separator
     _, step, wall, _, y_fin = phase_v2(
-        dev, "v2_finish_180s", *LONG, BATCH, 2, "standard",
-        cpu_tracks=(BATCH - 1,), reps=2, pro=V2_FINISH_PRO,
-        config=finish_config(), exciter_os=2, tp_ceiling_db=TP_CEILING_DB)
+        dev, runs["v2_finish_180s"], reps=2, exciter_os=2,
+        tp_ceiling_db=TP_CEILING_DB)
     busy = phase_profile(step, wall * 1e3, "v2_finish_180s", reps=1)
     del step
     phase_stages(dev, "v2_finish_180s", {
@@ -4052,9 +4248,8 @@ def main() -> None:
             spec, 0.6, oversample=2, device=d)}, 10, busy)
     phase_export(dev, y_fin)
     del y_fin
-    phase_v2(dev, "options_finish_180s", LONG[0], (), 1, 2, "standard",
-             cpu_tracks=(0,), reps=3, pro={}, config=options_finish_config(),
-             exciter_os=4, tp_ceiling_db=OPTIONS_TP_CEILING_DB)
+    phase_v2(dev, runs["options_finish_180s"], reps=3, exciter_os=4,
+             tp_ceiling_db=OPTIONS_TP_CEILING_DB)
     phase_vocal(dev)
     phase_htdemucs(dev)
     eng = RecordingEngine()

@@ -245,11 +245,11 @@ def test_unpacked_reduce_cuda_matches_plain_and_torch_fft(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nfft", ALL_SIZES)
-@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("rows", [1, 2, 3])
 def test_split_stages_cuda_match_plain(cuda_device, nfft, rows):
-    """Kernels 6 (forward B+C), 7 (inverse C+B with and without a
-    response) and 10 (K = 2 and 4 responses) against their plain
-    versions."""
+    """Kernels 6 (forward B+C, one pass: every cluster size of its rule
+    launched over the plans), 7 (inverse C+B with and without a response)
+    and 10 (K = 1 to 4 responses) against their plain versions."""
     dev = cuda_device
     tabs = tfs._device_tables(nfft, dev)
     xr, xi = (p.to(dev) for p in _planes((rows, nfft), 23, 0.3))
@@ -267,7 +267,7 @@ def test_split_stages_cuda_match_plain(cuda_device, nfft, rows):
         assert tfs.cb_cuda.launches == before + 1
         wr, wi = tfs.cb_plain(Sr, Si, resp, nfft, tabs)
         assert _rel(gr, wr) < REL_STAGE and _rel(gi, wi) < REL_STAGE
-    for K in (2, 4):
+    for K in (1, 2, 3, 4):
         before = tfs.cb_multi_cuda.launches
         gr, gi = tfs._stage_cb_multi(Sr, Si, resps[:K], nfft, tabs)
         torch.cuda.synchronize()
@@ -275,6 +275,31 @@ def test_split_stages_cuda_match_plain(cuda_device, nfft, rows):
         assert gr.shape == (K * rows, nfft)
         wr, wi = tfs.cb_multi_plain(Sr, Si, resps[:K], nfft, tabs)
         assert _rel(gr, wr) < REL_STAGE and _rel(gi, wi) < REL_STAGE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", ALL_SIZES)
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_bc_one_pass_equals_two_pass_yardstick(cuda_device, nfft, rows):
+    """Kernel 6's one pass against the two-pass design it replaced
+    (``scripts/bc_variants.cu``: the register B pass, then the C pass on
+    its output in device memory) and against itself at half its cluster
+    size where that tile fits a block: the same arithmetic in the same
+    order, so equal bit for bit."""
+    from amw_tpu_torch.scripts.ab_bccb import build_bc_variants, var_bc
+
+    dev = cuda_device
+    tabs = tfs._device_tables(nfft, dev)
+    xr, xi = (p.to(dev) for p in _planes((rows, nfft), 50 + rows, 0.3))
+    Sr, Si = tfs.bc_cuda(xr, xi, nfft, tabs)
+    dll = build_bc_variants()
+    for variant in (0, 1, 2):
+        if variant == 2 and nfft == 1 << 24:
+            continue  # Q = 4 at C = 1024: a 256 KB tile a block
+        gr, gi, fit = var_bc(dll, variant, xr, xi, nfft, tabs)
+        torch.cuda.synchronize()
+        assert fit >= 1 or variant == 0  # clusters that fit at once
+        assert torch.equal(gr, Sr) and torch.equal(gi, Si), variant
 
 
 @pytest.mark.cuda
