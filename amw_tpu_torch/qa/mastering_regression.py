@@ -39,8 +39,9 @@ _FIXTURES = _ROOT / "tests" / "fixtures" / "mastering_regression"
 
 def regression_wav_path() -> Path | None:
     """The regression WAV: ``MM_REGRESSION_WAV`` where set, else the
-    fixture ``scripts/gen_regression_fixture.py`` renders; ``None`` where
-    the file is missing."""
+    fixture ``python -m amw_tpu_torch.scripts.gen_regression_fixture``
+    writes from the repository's root; ``None`` where the file is
+    missing."""
     env = os.environ.get("MM_REGRESSION_WAV", "").strip()
     if env:
         p = Path(env).expanduser()

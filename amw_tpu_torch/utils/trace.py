@@ -11,8 +11,8 @@ The port's copy of ``amw_tpu/utils/trace.py``.  The service logs the
 job-level events; ``trace_stage`` is for a caller that holds a stage's
 output (the graphs expose no intermediate buffers), such as the
 stage-by-stage run of ``qa/mastering_regression.run_default_chain_stages``,
-and its optional loudness is the port's meter
-(``ops/meters.integrated_lufs``) on a CPU tensor.
+and its optional loudness is the port's meter on the CPU
+(``qa/gates.integrated_lufs``).
 """
 
 from __future__ import annotations
@@ -24,9 +24,8 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
-import torch
 
-from ..ops import fft_staged, meters
+from ..qa import gates
 
 logger = logging.getLogger("amw_tpu_torch.mastering_trace")
 if not logger.handlers:
@@ -94,18 +93,6 @@ def _fmt(d: dict) -> str:
     return " ".join(f"{k}={v}" for k, v in d.items())
 
 
-def integrated_lufs(audio, sr: int) -> float:
-    """Integrated loudness of ``audio`` [C, N] (or [N]) by the port's meter
-    on the CPU."""
-    cpu = torch.device("cpu")
-    x = torch.from_numpy(np.array(np.atleast_2d(audio), np.float32))[None]
-    n = x.shape[-1]
-    nfft = fft_staged.site_plan(n + meters.k_weight_settle(sr), cpu)[0]
-    Hk = torch.from_numpy(meters.k_weight_response(sr, nfft))
-    return float(meters.integrated_lufs(x, Hk, nfft,
-                                        meters.plan_blocks(sr, n))[0])
-
-
 def trace_stage(ctx: Optional[TraceContext], stage: str, audio, sr: int,
                 **extra) -> None:
     if ctx is None or not trace_enabled():
@@ -113,7 +100,8 @@ def trace_stage(ctx: Optional[TraceContext], stage: str, audio, sr: int,
     m = signal_metrics(audio, sr)
     if trace_lufs_enabled():
         try:
-            m["lufs"] = round(integrated_lufs(np.asarray(audio), sr), 2)
+            m["lufs"] = round(gates.integrated_lufs(audio, sr,
+                                                    device="cpu"), 2)
         except Exception:  # noqa: BLE001
             pass
     logger.info("mastering_trace job_id=%s path=%s stage=%s %s %s",

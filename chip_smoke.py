@@ -218,10 +218,31 @@ Phases, each printing JSON lines:
              (``htdemucs.separate_mesh``) against ``separate``: <= -90
              dBFS; (d) the stage-by-stage regression harness
              (``qa/mastering_regression``) on
-             ``scripts/gen_regression_fixture.render()``'s 165 s stereo,
+             ``amw_tpu_torch/scripts/gen_regression_fixture.render()``'s
+             165 s stereo,
              every window metric within
              ``tests/fixtures/mastering_regression/expected_metrics.json``;
-12. a ``kernels`` line: each kernel's launches on the path that uses it
+12. cli     — the operator CLIs of ``amw_tpu_torch/scripts`` on the card,
+             in a temporary directory on a temporary database: (a)
+             ``python -m amw_tpu_torch.scripts.run_self_diagnosis`` as its
+             own process, exit 0 with every preset's gates passed (±1 LU,
+             true peak <= -0.5 dBTP, finite), then each preset in this
+             process, its wall and the first one's launches (the v1
+             chain's on the staged FFT: the 12 s track plans 2^20); (b)
+             ``run_debug`` as its own process, every check passed, its op
+             errors (the card against the port's CPU path); (c)
+             ``run_test_master`` on a 180 s 16-bit WAV, first call and
+             warm, the output within 1 LU of -14, the printed wall and
+             realtime factor; (d) ``run_audio_test`` prints PASS; (e)
+             ``gen_regression_fixture`` writes the fixture the mesh phase
+             read and ``run_diagnose_file`` reports its stages; (f)
+             ``run_isolate_vocal`` on 30 s with the DSP separator and with
+             htdemucs (bundled), each within 120 dB SNR of
+             ``isolate_vocal``; (g)
+             ``gen_api_docs --out``, a row for each route; (h)
+             ``gen_sep_eval``'s four SNRs in f32 and bf16, f32 within 1e-3
+             dB of the port's CPU path (bf16 is 0.004 dB from f32);
+13. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -241,8 +262,10 @@ import asyncio
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -286,7 +309,7 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
 from amw_tpu_torch.parallel import timeshard
 from amw_tpu_torch.parallel.mesh import make_mesh
-from amw_tpu_torch.qa import mastering_regression
+from amw_tpu_torch.qa import gates, mastering_regression
 from amw_tpu_torch.runtime import ai
 from amw_tpu_torch.runtime.bot import Bot
 from amw_tpu_torch.runtime import db as service_db
@@ -294,7 +317,11 @@ from amw_tpu_torch.runtime import jobs as service_jobs
 from amw_tpu_torch.runtime import progress, service, settings_store
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
-from amw_tpu_torch.scripts import gen_demo_assets, htdemucs_gate
+from amw_tpu_torch.scripts import (gen_api_docs, gen_demo_assets,
+                                   gen_regression_fixture, gen_sep_eval,
+                                   htdemucs_gate, run_audio_test,
+                                   run_diagnose_file, run_isolate_vocal,
+                                   run_self_diagnosis, run_test_master)
 from amw_tpu_torch.scripts.ab_bccb import (B_INV, kernel_ms, pass_ms,
                                            passes_ms, profile_ms)
 from amw_tpu_torch.utils import wav
@@ -348,6 +375,11 @@ V2_FINISH_PRO = {**V2_PRO, "true_peak_enabled": True,
 OPTIONS_TP_CEILING_DB = -7.0
 EXPORT_SR = 48000  # the export path (bench.py:368-396): 44.1 -> 48 kHz
 VOCAL_SEED = 30
+# the v1 chain's launches in one call on the staged FFT (every plan
+# 2^19..2^24: tracks from ~5.8 s), one track or a batch
+V1_STAGED = {"box_smooth_same": 1, "env_gain": 1, "fft_stage_a": 3,
+             "fft_bccb_multi": 3, "fft_stage_a_inv_join": 2,
+             "fft_reduce_stage_a_packed": 1}
 # the launch counters of the kernels' wrappers, by kernel name
 COUNTERS = {
     "box_smooth_same": fdfilter.box_smooth_cuda,
@@ -3626,7 +3658,7 @@ def phase_service(dev, eng, analyze_launches: dict) -> None:
              runtime_settings.feature_ai_enabled, gen_demo_assets.DEMO_DIR)
     saved_env = {k: os.environ.get(k) for k in ("AMW_ADMIN_EMAIL",
                                                 "AMW_ADMIN_PASSWORD")}
-    # the last phase to use the port's database: its path is not restored
+    # its path is not restored: the cli phase sets its own
     service_db.set_db_path(os.path.join(tmp, "service.sqlite3"))
     runtime_settings.mastering_debug_skip_limits = True
     runtime_settings.rate_limit_per_minute = 1 << 30
@@ -3684,8 +3716,6 @@ WAV16_PAIR_LSB = 2.0  # two dithered int16 responses of one master
 # three settles and 16; ~157 000 samples in this chain): the launch model
 # holds where the window's plan and that length's plan agree
 SITE_PAD_MAX = 1 << 18
-REGRESSION_SCRIPT = Path(__file__).resolve().parent / "scripts" / \
-    "gen_regression_fixture.py"
 
 
 def positions(k: int):
@@ -4077,22 +4107,22 @@ def mesh_separate(dev) -> dict:
             "max_err": err, "max_err_dbfs": err_db}
 
 
+@functools.cache
+def regression_fixture_wav() -> bytes:
+    """The regression fixture's WAV (165 s stereo, int16, no dither), as
+    ``amw_tpu_torch/scripts/gen_regression_fixture.py`` writes it."""
+    return wav.write_wav_int16(gen_regression_fixture.to_int16(
+        gen_regression_fixture.render()), gen_regression_fixture.SR)
+
+
 def mesh_regression(dev) -> dict:
     """(d) The stage-by-stage regression harness
     (``qa/mastering_regression``) on the card: the fixture that
-    ``scripts/gen_regression_fixture.render()`` makes (165 s stereo, as
-    its WAV holds it: int16, no dither), the default chain's full stage
-    list, and every window metric within the thresholds of
+    ``amw_tpu_torch/scripts/gen_regression_fixture.render()`` makes (165 s
+    stereo, as its WAV holds it: int16, no dither), the default chain's
+    full stage list, and every window metric within the thresholds of
     ``tests/fixtures/mastering_regression/expected_metrics.json``."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("gen_regression_fixture",
-                                                  REGRESSION_SCRIPT)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    audio = mod.render()
-    q = np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16)
-    x, sr = wav.read_wav(wav.write_wav_int16(q, mod.SR))
+    x, sr = wav.read_wav(regression_fixture_wav())
     t0 = time.perf_counter()
     rows = mastering_regression.metrics_after_each_stage(x, sr, device=dev)
     wall = time.perf_counter() - t0
@@ -4137,6 +4167,278 @@ def phase_mesh(dev) -> None:
     emit({"phase": "mesh", "phase_s": time.perf_counter() - t_phase})
 
 
+# ---- the operator CLIs: amw_tpu_torch/scripts ------------------------------
+
+CLI_MASTER_S = 180.0  # run_test_master's track (make_track, seed CLI_SEED)
+CLI_VOCAL_S = 30.0  # run_isolate_vocal's track (seed VOCAL_SEED)
+CLI_SEED = 60
+CLI_TIMEOUT_S = 300  # a CLI run as its own process
+# gen_sep_eval's f32 SNRs, card against the CPU: under bf16's own distance
+# from f32 (0.004 dB), so an f32 run that went bf16 on the card fails
+SEP_TOL_DB = 1e-3
+# run_isolate_vocal's float32 WAV against isolate_vocal on the same input
+# (the same path: bit for bit equal but for the WAV's float32 rounding)
+CLI_VOCAL_SNR_DB = 120.0
+ROOT = Path(__file__).resolve().parent
+
+
+def cli_call(main_fn, *argv) -> tuple[int, str, float]:
+    """``main_fn(argv)`` in this process: (exit code, stdout, wall s)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_process(module: str, *argv) -> tuple[int, str, float]:
+    """``python -m amw_tpu_torch.scripts.<module>`` as its own process
+    from the checkout's root, as an operator runs it: (exit code, stdout,
+    wall s, the process's start included); its output is printed to
+    stderr where it fails."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", f"amw_tpu_torch.scripts.{module}", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr,
+              flush=True)
+    return p.returncode, p.stdout, wall
+
+
+def cli_self_diagnosis(dev, tmp: Path) -> dict:
+    """(a) ``run_self_diagnosis`` as its own process: exit 0, every
+    preset's gates passed; then each preset in this process
+    (``run_self_diagnosis.diagnose``: ``master_v1`` and the meters), its
+    wall, its loudness as the process printed it, and the first preset's
+    launches (those of the v1 chain on the staged FFT: the 12 s track
+    plans 2^20)."""
+    rc, out, wall = cli_process("run_self_diagnosis")
+    check(rc == 0, f"cli: run_self_diagnosis exited {rc}")
+    lines = out.splitlines()
+    check(lines[-1] == "All self-diagnosis gates passed.",
+          f"cli: run_self_diagnosis said {lines[-1:]}")
+    printed = {}
+    for line in lines:
+        f = line.split()
+        if len(f) == 11 and f[1] == "target":
+            printed[f[0]] = {"target": float(f[2]), "lufs": float(f[4]),
+                             "tp_dbtp": float(f[7]), "verdict": f[-1]}
+    check(list(printed) == list(PRESET_LUFS)
+          and all(r["verdict"] == "OK" for r in printed.values()),
+          f"cli: self-diagnosis rows {printed}")
+    x = run_self_diagnosis.make_track()
+    idle = {name: 0 for name in COUNTERS}
+    walls, launches = {}, None
+    for preset in PRESET_LUFS:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run_self_diagnosis.diagnose(preset, x, SR, dev)
+        walls[preset] = time.perf_counter() - t0
+        counts = read_counts()
+        check(r["ok"], f"cli: self-diagnosis {preset} failed in process")
+        # the process printed two decimals
+        check(abs(r["lufs"] - printed[preset]["lufs"]) <= 0.0051
+              and abs(r["tp"] - printed[preset]["tp_dbtp"]) <= 0.0051,
+              f"cli: self-diagnosis {preset}: {r['lufs']}, {r['tp']} "
+              f"against {printed[preset]}")
+        printed[preset].update(lufs_in_process=r["lufs"],
+                               tp_in_process=r["tp"])
+        if launches is None:
+            launches = counts
+    check(launches == {**idle, **V1_STAGED},
+          f"cli: self-diagnosis launches {launches}")
+    return {"process_wall_s": wall, "presets": printed,
+            "preset_wall_s": walls, "launches_preset":
+            next(iter(PRESET_LUFS)), "launches": launches}
+
+
+def cli_debug(dev, tmp: Path) -> dict:
+    """(b) ``run_debug`` as its own process: exit 0, every check passed;
+    its op errors (the card against the port's CPU path)."""
+    rc, out, wall = cli_process("run_debug")
+    check(rc == 0, f"cli: run_debug exited {rc}")
+    check(out.splitlines()[-1] == "14/14 checks passed",
+          f"cli: run_debug said {out.splitlines()[-1:]}")
+    errs = {name: float(e) for name, e in
+            re.findall(r"\[PASS\] (.+?) \(err ([^)]*)\)", out)}
+    check(len(errs) == 8, f"cli: run_debug errors {errs}")
+    env = re.search(r"\[PASS\] torch devices \((.*)\)", out)
+    return {"process_wall_s": wall, "checks": 14, "errors": errs,
+            "environment": env.group(1) if env else None}
+
+
+def cli_test_master(dev, tmp: Path) -> dict:
+    """(c) ``run_test_master`` on a 180 s WAV (16-bit) twice, the first
+    call and warm: exit 0, the WAV written at the input's length within 1
+    LU of the target (measured again on the card), the printed wall and
+    realtime factor beside this process's wall of the call."""
+    x = make_track(SR, CLI_MASTER_S, seed=CLI_SEED)
+    src = tmp / "in_180s.wav"
+    src.write_bytes(wav16(x))
+    runs = []
+    for k in range(2):
+        dst = tmp / f"mastered_{k}.wav"
+        rc, out, wall = cli_call(run_test_master.main, str(src), str(dst))
+        check(rc == 0, f"cli: run_test_master exited {rc}")
+        m = re.search(r"mastered in ([\d.]+)s \(([\d.]+)x realtime\), "
+                      r"(-?[\d.]+) LUFS, TP (-?[\d.]+) dBTP", out)
+        check(m is not None, f"cli: run_test_master said {out!r}")
+        y, sr = wav.read_wav(dst.read_bytes())
+        check(sr == SR and y.shape == x.shape and np.isfinite(y).all(),
+              f"cli: run_test_master wrote {y.shape} at {sr}")
+        lufs = gates.integrated_lufs(y, SR, device=dev)
+        check(abs(lufs - TARGET_LUFS) <= 1.0,
+              f"cli: run_test_master output at {lufs} LUFS")
+        runs.append({"call": "first" if k == 0 else "warm",
+                     "printed_wall_s": float(m.group(1)),
+                     "printed_realtime": float(m.group(2)),
+                     "printed_lufs": float(m.group(3)),
+                     "printed_tp_dbtp": float(m.group(4)),
+                     "wav_lufs": lufs, "main_wall_s": wall})
+    return {"track_s": CLI_MASTER_S, "runs": runs}
+
+
+def cli_audio_test(dev, tmp: Path) -> dict:
+    """(d) ``run_audio_test`` in a temporary working directory: PASS,
+    both WAVs written."""
+    with contextlib.chdir(tmp):
+        rc, out, wall = cli_call(run_audio_test.main)
+    lines = out.splitlines()
+    check(rc == 0 and lines[-1] == "PASS",
+          f"cli: run_audio_test exited {rc}: {lines[-1:]}")
+    for name in ("test_output_v1.wav", "test_output_v2.wav"):
+        y, _ = wav.read_wav((tmp / name).read_bytes())
+        check(y.shape == (2, 8 * SR), f"cli: {name} is {y.shape}")
+    lufs = [float(v) for v in re.findall(r"v\d: (-?[\d.]+) LUFS", out)]
+    return {"wall_s": wall, "v1_lufs": lufs[0], "v2_lufs": lufs[1]}
+
+
+def cli_diagnose_file(dev, tmp: Path) -> dict:
+    """(e) ``gen_regression_fixture`` writes the fixture (the bytes the
+    mesh phase's harness read), then ``run_diagnose_file`` on it: exit 0,
+    the default chain's stages, every printed number finite."""
+    with contextlib.chdir(tmp):
+        rc, _, gen_wall = cli_call(gen_regression_fixture.main)
+    path = tmp / gen_regression_fixture.OUT
+    check(rc == 0 and path.read_bytes() == regression_fixture_wav(),
+          "cli: gen_regression_fixture wrote another fixture")
+    rc, out, wall = cli_call(run_diagnose_file.main, str(path))
+    check(rc == 0, f"cli: run_diagnose_file exited {rc}")
+    stages = [ln.split()[0] for ln in out.splitlines()
+              if ln.startswith("  ") and " intro: " in ln]
+    nums = [float(v) for v in re.findall(r"-?\d+\.\d+", out)]
+    check(len(stages) >= 7 and stages[-1] == "v2_output_fade_in"
+          and all(np.isfinite(nums)), f"cli: run_diagnose_file {stages}")
+    return {"track_s": gen_regression_fixture.DUR, "stages": stages,
+            "fixture_wall_s": gen_wall, "wall_s": wall}
+
+
+def cli_isolate_vocal(dev, tmp: Path) -> dict:
+    """(f) ``run_isolate_vocal`` on a 30 s WAV with the DSP separator and
+    with htdemucs on the bundled checkpoint: exit 0, each output within
+    ``CLI_VOCAL_SNR_DB`` of ``isolate_vocal`` called on the same decoded
+    input, the network's output not the separator's."""
+    src = tmp / "vocal_30s.wav"
+    src.write_bytes(wav16(make_track(SR, CLI_VOCAL_S, seed=VOCAL_SEED)))
+    x, _ = wav.read_wav(src.read_bytes())
+    out = {}
+    for model, extra, ckpt in (("center_extract", (), None),
+                               ("htdemucs", ("--weights", "bundled"),
+                                "bundled")):
+        dst = tmp / f"vocals_{model}.wav"
+        with env_set(AMW_HTDEMUCS_CKPT=None):
+            rc, _, wall = cli_call(run_isolate_vocal.main, str(src),
+                                   str(dst), "--model", model, *extra)
+        y, sr = wav.read_wav(dst.read_bytes())
+        check(rc == 0 and sr == SR and y.shape == x.shape
+              and np.isfinite(y).all() and np.abs(y).max() > 1e-3,
+              f"cli: run_isolate_vocal {model}: {y.shape}")
+        with env_set(AMW_HTDEMUCS_CKPT=ckpt):
+            want = isolate_vocal(x, SR, model=model, device=dev)
+        snr = snr_db(want, y)
+        check(snr >= CLI_VOCAL_SNR_DB,
+              f"cli: run_isolate_vocal {model} SNR {snr}")
+        out[model] = {"wall_s": wall, "snr_db_vs_call": snr, "y": y}
+    diff = float(np.abs(out["htdemucs"]["y"]
+                        - out["center_extract"]["y"]).max())
+    check(diff > 1e-3, "cli: run_isolate_vocal htdemucs ran the DSP path")
+    for r in out.values():
+        del r["y"]
+    return {"track_s": CLI_VOCAL_S, **out}
+
+
+def cli_api_docs(dev, tmp: Path) -> dict:
+    """(g) ``gen_api_docs --out``: exit 0, a table row for each route of
+    the port's app on the card's engine, the header naming the port's
+    script."""
+    dst = tmp / "API.md"
+    rc, out, wall = cli_call(gen_api_docs.main, "--out", str(dst))
+    text = dst.read_text()
+    rows = [ln for ln in text.splitlines()
+            if ln.startswith("| ") and not ln.startswith("| Method")]
+    groups = [ln[3:] for ln in text.splitlines() if ln.startswith("## ")]
+    check(rc == 0 and out == f"wrote {dst} ({len(rows)} endpoints)\n"
+          and len(rows) >= 150 and gen_api_docs.SCRIPT in text,
+          f"cli: gen_api_docs said {out!r} for {len(rows)} rows")
+    return {"wall_s": wall, "endpoints": len(rows), "groups": groups}
+
+
+def cli_sep_eval(dev, tmp: Path) -> dict:
+    """(h) ``gen_sep_eval`` on the bundled checkpoint on the card in f32
+    and bf16 (``--dtype``): its four SNRs, the network above the mixture
+    on both corpora, f32 within ``SEP_TOL_DB`` of the port's CPU path."""
+    out = {}
+    for dtype in ("f32", "bf16"):
+        with env_set(AMW_HTDEMUCS_DTYPE=None, AMW_HTDEMUCS_CKPT=None):
+            rc, said, wall = cli_call(gen_sep_eval.main, "--dtype", dtype)
+        r = json.loads(said)
+        check(rc == 0 and r["heldout_vocal_snr_db"]
+              > r["heldout_mixture_snr_db"] and r["song_vocal_snr_db"]
+              > r["song_mixture_snr_db"], f"cli: gen_sep_eval {dtype} {r}")
+        out[dtype] = {**r, "wall_s": wall}
+    t0 = time.perf_counter()
+    with env_set(AMW_HTDEMUCS_DTYPE="f32"):
+        cpu = gen_sep_eval.eval_checkpoint(device="cpu")
+    out["cpu_f32"] = {**cpu, "wall_s": time.perf_counter() - t0}
+    err = {k: abs(out["f32"][k] - v) for k, v in cpu.items()}
+    check(max(err.values()) <= SEP_TOL_DB,
+          f"cli: gen_sep_eval f32 card against CPU: {err}")
+    return {**out, "f32_vs_cpu_db": err, "tol_db": SEP_TOL_DB}
+
+
+def phase_cli(dev) -> None:
+    """The operator CLIs of ``amw_tpu_torch/scripts`` on the card, each
+    through its ``main`` (as an operator's command runs it) in a
+    temporary directory with a temporary database: (a)
+    :func:`cli_self_diagnosis`, (b) :func:`cli_debug`, (c)
+    :func:`cli_test_master`, (d) :func:`cli_audio_test`, (e)
+    :func:`cli_diagnose_file`, (f) :func:`cli_isolate_vocal`, (g)
+    :func:`cli_api_docs`, (h) :func:`cli_sep_eval`, a line each."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # room for the CLIs run as their own process
+    tmp = Path(tempfile.mkdtemp(prefix="amw_cli_"))
+    service_db.set_db_path(str(tmp / "cli.sqlite3"))
+    try:
+        for label, run in (("self_diagnosis", cli_self_diagnosis),
+                           ("debug", cli_debug),
+                           ("test_master", cli_test_master),
+                           ("audio_test", cli_audio_test),
+                           ("diagnose_file", cli_diagnose_file),
+                           ("isolate_vocal", cli_isolate_vocal),
+                           ("api_docs", cli_api_docs),
+                           ("sep_eval", cli_sep_eval)):
+            t0 = time.perf_counter()
+            out = run(dev, tmp)
+            emit({"phase": "cli", "run": label, **out,
+                  "run_s": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli", "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -4175,9 +4477,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
                 expect={**idle, "box_smooth_same": 1, "env_gain": 1})
     v1, step, wall, y_v1 = phase_slice(
         dev, runs["v1_180s"], reps=5,
-        expect={**idle, "box_smooth_same": 1, "env_gain": 1,
-                "fft_stage_a": 3, "fft_bccb_multi": 3,
-                "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
+        expect={**idle, **V1_STAGED})
     phase_profile(step, wall * 1e3, "v1_180s", reps=2)
     v1_split = phase_v1_split(step, y_v1, valid_lengths(*LONG, BATCH), wall)
     del step, y_v1
@@ -4218,9 +4518,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
     # is held to the port's CPU path, not to the target's window
     _, step, wall, _ = phase_slice(
         dev, runs["v1_reference_180s"], reps=2, target_window=False,
-        expect={**idle, "box_smooth_same": 1, "env_gain": 1,
-                "fft_stage_a": 3, "fft_bccb_multi": 3,
-                "fft_stage_a_inv_join": 2, "fft_reduce_stage_a_packed": 1})
+        expect={**idle, **V1_STAGED})
     busy = phase_profile(step, wall * 1e3, "v1_reference_180s", reps=1)
     del step
     ref_env = runs["v1_reference_180s"].v1_kw["reference_env"]
@@ -4260,6 +4558,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
     finally:
         eng.close()
     phase_mesh(dev)
+    phase_cli(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}
