@@ -290,12 +290,25 @@ def _hann(n: int) -> np.ndarray:
         np.float32)
 
 
-@functools.lru_cache(maxsize=32)
+def _constant(fn):
+    """An ``lru_cache`` of host-built constant tensors, each made outside
+    inference mode: a tensor first made under ``torch.inference_mode`` (a
+    served forward) could not be saved for the backward of a later
+    training step."""
+    @functools.lru_cache(maxsize=32)
+    @functools.wraps(fn)
+    def cached(*args):
+        with torch.inference_mode(False):
+            return fn(*args)
+    return cached
+
+
+@_constant
 def _window(nfft: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_hann(nfft)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@_constant
 def _ola_norm(nfft: int, hop: int, frames: int,
               device: torch.device) -> torch.Tensor:
     """1 / the window-square overlap-add of ``frames`` frames, summed in
@@ -367,7 +380,7 @@ def _ispec(re, im, hop: int, length: int):
     return x[..., pad:pad + length]
 
 
-@functools.lru_cache(maxsize=32)
+@_constant
 def _sin_embedding_1d(length: int, dim: int, device: torch.device,
                       dtype: torch.dtype, max_period: float = 10000.0):
     """[1, T, C] (htdemucs_jax._sin_embedding_1d, float64 on the host)."""
@@ -379,7 +392,7 @@ def _sin_embedding_1d(length: int, dim: int, device: torch.device,
     return torch.from_numpy(emb)[None].to(device=device, dtype=dtype)
 
 
-@functools.lru_cache(maxsize=32)
+@_constant
 def _sin_embedding_2d(d_model: int, height: int, width: int,
                       device: torch.device, dtype: torch.dtype,
                       max_period: float = 10000.0):
@@ -777,6 +790,18 @@ def inference_model(cfg: HTConfig, state: dict, *, device,
     model = model.to(device=dev, dtype=dtype).eval()
     model.requires_grad_(False)
     return model
+
+
+def train_model(cfg: HTConfig, state: dict, *, device) -> HTDemucs:
+    """The network on ``device`` for training (``None``: ``cuda``): f32
+    copies of ``state``'s tensors (the JAX package's parameter dict is
+    taken key for key, as :func:`inference_model` takes it), gradients
+    on, in train mode.  Run its steps under ``_full_f32(torch.float32)``
+    (TF32 off), as the JAX trainer trains in f32."""
+    dev = resolve_device(device)
+    model = _build(cfg, {k: torch.as_tensor(v, dtype=torch.float32)
+                         .detach().clone() for k, v in state.items()})
+    return model.to(dev).train()
 
 
 def load_params(path: str):

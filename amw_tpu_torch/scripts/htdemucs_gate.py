@@ -1,13 +1,23 @@
-"""The separation gate of an htdemucs checkpoint, for ``chip_smoke.py`` and
-the tests: on fresh synthetic four-stem mixtures, the network's vocals
-must beat the mixture taken as the vocals estimate by a wide margin.  The
-bars, from the JAX package's test of its trained checkpoint
-(tests/test_htdemucs_parity.py:233-281), are SNR > 8 dB and > the
-mixture's + 8 dB at rng seed 987654 (neither the training nor the
-evaluation seed) over 4 segments.
+"""The separation gate of an htdemucs checkpoint, for ``chip_smoke.py``,
+the tests and a trained checkpoint: on fresh synthetic four-stem
+mixtures, the network's vocals must beat the mixture taken as the vocals
+estimate by a wide margin.  The bars, from the JAX package's test of its
+trained checkpoint (tests/test_htdemucs_parity.py:233-281), are SNR > 8
+dB and > the mixture's + 8 dB at rng seed 987654 (neither the training
+nor the evaluation seed) over 4 segments.
+
+    python -m amw_tpu_torch.scripts.htdemucs_gate [CKPT.npz]
+        [--device cuda|cpu] [--dtype f32|bf16]
+
+prints both SNRs and the verdict as JSON (the bundled checkpoint without a
+path; the inference dtype of the device unless ``--dtype``) and exits 1
+where the gate fails.
 """
 
 from __future__ import annotations
+
+import argparse
+import json
 
 import numpy as np
 
@@ -87,3 +97,34 @@ def vocals_snr(model, seed: int = GATE_SEED,
 
 def passes(s_model: float, s_mix: float) -> bool:
     return s_model > GATE_MIN_DB and s_model > s_mix + GATE_OVER_MIX_DB
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("path", nargs="?", default=None,
+                    help="checkpoint (.npz); default: the bundled one")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--dtype", default=None, choices=["f32", "bf16"])
+    args = ap.parse_args(argv)
+    import torch
+
+    from .. import resolve_device
+    from ..models import htdemucs, vocal
+
+    dev = resolve_device(args.device)
+    path = vocal.BUNDLED if args.path is None else args.path
+    cfg, state = htdemucs.load_params(path)
+    dtype = ({"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+             if args.dtype else htdemucs.inference_dtype(dev))
+    model = htdemucs.inference_model(cfg, state, device=dev, dtype=dtype)
+    s_model, s_mix = vocals_snr(model)
+    ok = passes(s_model, s_mix)
+    print(json.dumps({"path": path, "dtype": str(dtype).split(".")[-1],
+                      "vocals_snr_db": s_model, "mixture_snr_db": s_mix,
+                      "passes": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

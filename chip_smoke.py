@@ -242,7 +242,29 @@ Phases, each printing JSON lines:
              ``gen_api_docs --out``, a row for each route; (h)
              ``gen_sep_eval``'s four SNRs in f32 and bf16, f32 within 1e-3
              dB of the port's CPU path (bf16 is 0.004 dB from f32);
-13. a ``kernels`` line: each kernel's launches on the path that uses it
+13. train   — the htdemucs trainer (``amw_tpu_torch/scripts/
+             train_htdemucs.py``: autograd over the port's network, cuDNN,
+             cuBLAS, cuFFT, no hand kernel; TF32 switches on, the step
+             turns them off), a line each: (a) one step at the trainer's
+             defaults (channels 16, bottom 48, batch 16, seed 0) on one
+             augmented batch, the card's f32 loss and gradients against
+             the port's CPU path at float64 (loss within 1e-6 relative,
+             each gradient tensor above 1e-9 of the largest within 1e-4
+             of its own largest, the rest within that floor; the CPU path
+             at f32 against it reported beside); (b) 200 steps through
+             ``main`` (20 of them profiled): ms a step at steady state,
+             the host corpus's ms a batch against it and the queue's wait,
+             device idle share and kernels a step, peak memory, the
+             training realtime factor (audio seconds a wall second), the
+             L1 at the first and last logged steps (the last below), the
+             probe SNR; (c) five steps at the released widths (channels
+             48, bottom 512): ms a step, peak memory, the FLOPs of a
+             forward and backward (``torch.utils.flop_counter``) and their
+             bound at ``F32_FLOPS``, every loss finite; (d) the ``.npz``
+             of (b) served by ``models/vocal`` (``AMW_HTDEMUCS_CKPT``):
+             ``isolate_vocal`` of a 30 s track; (e) none of the 13 kernels
+             launched over the phase;
+14. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -321,7 +343,8 @@ from amw_tpu_torch.scripts import (gen_api_docs, gen_demo_assets,
                                    gen_regression_fixture, gen_sep_eval,
                                    htdemucs_gate, run_audio_test,
                                    run_diagnose_file, run_isolate_vocal,
-                                   run_self_diagnosis, run_test_master)
+                                   run_self_diagnosis, run_test_master,
+                                   train_htdemucs)
 from amw_tpu_torch.scripts.ab_bccb import (B_INV, kernel_ms, pass_ms,
                                            passes_ms, profile_ms)
 from amw_tpu_torch.utils import wav
@@ -4439,6 +4462,251 @@ def phase_cli(dev) -> None:
     emit({"phase": "cli", "phase_s": time.perf_counter() - t_phase})
 
 
+# ---- the htdemucs trainer: amw_tpu_torch/scripts/train_htdemucs.py -------
+
+TRAIN_SEED = 0
+TRAIN_STEPS = 200
+TRAIN_PROFILE_STEPS = 20
+TRAIN_RELEASED = ("--channels", "48", "--bottom", "512")
+TRAIN_RELEASED_STEPS = 5
+TRAIN_SERVE_S = 30.0
+# the CPU test's bars (tests/test_torch_train_jax.py)
+TRAIN_LOSS_REL = 1e-6
+TRAIN_GRAD_REL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-9  # of the network's largest gradient
+
+
+def train_inputs(args, dev):
+    """(config, seed-0 state, one augmented batch as (mix, target) on
+    ``dev``, the stem weights) of the trainer's parser defaults plus
+    ``args``."""
+    cli = train_htdemucs.build_parser().parse_args(["x.npz", *args])
+    cfg = htdemucs.tiny_config(channels=cli.channels,
+                               bottom_channels=cli.bottom)
+    stems = train_htdemucs.augmented_batch(
+        np.random.default_rng(TRAIN_SEED), cli.batch, cfg.segment_samples,
+        cfg.samplerate)
+    w = torch.from_numpy(train_htdemucs.stem_weights(cli.vocal_weight))
+    return (cli, cfg, htdemucs.init_params(cfg, seed=cli.seed),
+            torch.from_numpy(stems.sum(axis=1)), torch.from_numpy(stems),
+            w.reshape(1, 4, 1, 1))
+
+
+def grad_agreement(got: dict, want: dict) -> dict:
+    """Per gradient tensor, ``got`` against ``want``: the worst error over
+    the tensor's largest among the tensors above ``TRAIN_GRAD_FLOOR`` of
+    the network's largest, and the worst absolute error of the others."""
+    gmax = max(float(g.abs().max()) for g in want.values())
+    floor = TRAIN_GRAD_FLOOR * gmax
+    worst, worst_k, under, worst_under = 0.0, None, 0, 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        scale = float(w.abs().max())
+        check(np.isfinite(err), f"train: gradient of {k} not finite")
+        if scale > floor:
+            if err / scale >= worst:
+                worst, worst_k = err / scale, k
+        else:
+            under += 1
+            worst_under = max(worst_under, err)
+    return {"grad_max": gmax, "floor": floor, "worst_rel_err": worst,
+            "worst_tensor": worst_k, "under_floor": under,
+            "under_floor_worst_abs_err": worst_under}
+
+
+def train_one_step(dev, tmp: Path) -> dict:
+    """(a) One step's loss and gradients at the trainer's defaults, the
+    card's f32 against the port's CPU path at float64 (the network in f64
+    behind its f32 STFT), to the CPU test's bars.  Beside it, reported:
+    the CPU path at f32 against the same f64, and the card against it (the
+    CPU's f32 reduction of the last time decoder's bias gradient, 1.3e5
+    L1 signs a channel that nearly cancel, parts from f64 by ~3.4e-4 of
+    its largest)."""
+    cli, cfg, state, mix, target, w = train_inputs((), dev)
+    cpu = torch.device("cpu")
+    runs = {}
+    for label, d, dtype in (("card", dev, torch.float32),
+                            ("cpu_f32", cpu, torch.float32),
+                            ("cpu_f64", cpu, torch.float64)):
+        model = htdemucs.train_model(cfg, state, device=d).to(dtype)
+        t0 = time.perf_counter()
+        loss = train_htdemucs.loss_and_grads(
+            model, mix.to(d, dtype), target.to(d, dtype), w.to(d, dtype))
+        runs[label] = (float(loss), {k: p.grad.cpu().double() for k, p in
+                                     model.named_parameters()},
+                       time.perf_counter() - t0)
+    (l_card, g_card, s_card) = runs["card"]
+    (l_ref, g_ref, s_ref) = runs["cpu_f64"]
+    (l_f32, g_f32, s_f32) = runs["cpu_f32"]
+    loss_rel = abs(l_card - l_ref) / abs(l_ref)
+    check(np.isfinite(l_card) and loss_rel <= TRAIN_LOSS_REL,
+          f"train: card loss {l_card} against the CPU's {l_ref}")
+    card = grad_agreement(g_card, g_ref)
+    check(card["worst_rel_err"] <= TRAIN_GRAD_REL,
+          f"train: card gradient of {card['worst_tensor']} "
+          f"{card['worst_rel_err']} of its largest from the CPU's")
+    check(card["under_floor_worst_abs_err"] <= card["floor"],
+          f"train: card gradients under the floor {card}")
+    return {"batch": cli.batch, "channels": cli.channels,
+            "bottom": cli.bottom, "grad_tensors": len(g_ref),
+            "loss_card": l_card, "loss_cpu_f64": l_ref,
+            "loss_cpu_f32": l_f32, "loss_rel_err": loss_rel,
+            "card_vs_cpu_f64": card,
+            "cpu_f32_vs_cpu_f64": grad_agreement(g_f32, g_ref),
+            "card_vs_cpu_f32": grad_agreement(g_card, g_f32),
+            "card_step_s": s_card, "cpu_f32_step_s": s_f32,
+            "cpu_f64_step_s": s_ref}
+
+
+def train_main(dev, tmp: Path) -> dict:
+    """(b) ``train_htdemucs.main`` for ``TRAIN_STEPS`` steps on the card,
+    ``TRAIN_PROFILE_STEPS`` of them profiled; its ``.npz`` is left in
+    ``tmp`` for (d)."""
+    out = tmp / "trained.npz"
+    report = {}
+    rc, said, wall = cli_call(
+        lambda argv: train_htdemucs.main(argv, report=report), str(out),
+        str(TRAIN_STEPS), "--profile-steps", str(TRAIN_PROFILE_STEPS))
+    lines = said.splitlines()
+    check(rc == 0 and lines[-1] == f"saved {out}" and out.is_file(),
+          f"train: main exited {rc}: {lines[-1:]}")
+    losses = report["losses"]
+    first, last = losses[min(losses)], losses[max(losses)]
+    check(np.isfinite(first) and np.isfinite(last) and last < first,
+          f"train: l1 {first} at the first logged step, {last} at the last")
+    prof = report["profile"]
+    check(prof["device_idle_share"] is not None,
+          "train: the profile saw no device time")
+    check(np.isfinite(report["best_probe_snr_db"]),
+          f"train: probe {report['probes']}")
+    return {"steps": TRAIN_STEPS, "main_wall_s": wall,
+            "l1_first": first, "l1_last": last,
+            "l1_logged": {str(k): v for k, v in losses.items()},
+            **{k: report[k] for k in (
+                "steady_ms_per_step", "steady_window", "host_batch_ms",
+                "queue_wait_ms_per_step", "realtime_factor",
+                "realtime_factor_run", "first_step_s", "peak_memory_gb",
+                "wall_s",
+                "probes", "best_probe_snr_db", "best_step",
+                "same_vocal_snr_db", "same_mixture_snr_db",
+                "heldout_vocal_snr_db", "heldout_mixture_snr_db",
+                "params")},
+            "host_batch_over_step": (report["host_batch_ms"]
+                                     / report["steady_ms_per_step"]),
+            "profile": prof}
+
+
+def train_released(dev, tmp: Path) -> dict:
+    """(c) Five steps at the released widths on one augmented batch each
+    (made on the host before): CUDA-event ms a step (the median of the
+    last four), peak memory (above what the process held before), the
+    FLOPs of one forward and backward
+    (``FlopCounterMode``) and their bound at ``F32_FLOPS``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cli, cfg, state, mix, target, w = train_inputs(TRAIN_RELEASED, dev)
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    batches = [(mix, target)] + [
+        (torch.from_numpy(b.sum(axis=1)), torch.from_numpy(b))
+        for b in (train_htdemucs.augmented_batch(
+            rng, cli.batch, cfg.segment_samples, cfg.samplerate)
+            for _ in range(TRAIN_RELEASED_STEPS - 1))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    model = htdemucs.train_model(cfg, state, device=dev)
+    opt, sched = train_htdemucs.make_optimizer(model.parameters(), cli.lr,
+                                               TRAIN_RELEASED_STEPS)
+    w = w.to(dev)
+    with FlopCounterMode(display=False) as fc:
+        train_htdemucs.loss_and_grads(model, mix.to(dev), target.to(dev), w)
+    flops = fc.get_total_flops()
+    losses, ms = [], []
+    for m, t in batches:
+        m, t = m.to(dev), t.to(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = train_htdemucs.train_step(model, opt, sched, m, t, w)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    check(all(np.isfinite(losses)), f"train released: losses {losses}")
+    step_ms = statistics.median(ms[1:])
+    bound = flops / F32_FLOPS * 1e3
+    return {"channels": cli.channels, "bottom": cli.bottom,
+            "batch": cli.batch, "params": sum(p.numel() for p in
+                                              model.parameters()),
+            "losses": losses, "step_ms": ms, "ms_per_step": step_ms,
+            "peak_memory_gb": peak, "step_flops": flops, "bound_ms": bound,
+            "bound_by": "operations", "share_of_bound": bound / step_ms}
+
+
+def train_serves(dev, tmp: Path) -> dict:
+    """(d) The ``.npz`` that (b) wrote, configured through
+    ``AMW_HTDEMUCS_CKPT``: ``isolate_vocal`` of a 30 s stereo track ran
+    the network (its weights cached under the file's key), shape,
+    finite, full scale, not silent."""
+    path = str(tmp / "trained.npz")
+    x = make_track(SR, TRAIN_SERVE_S, seed=HT_SEED + 3)
+    try:
+        with env_set(AMW_HTDEMUCS_CKPT=path, AMW_HTDEMUCS_DTYPE=None):
+            t0 = time.perf_counter()
+            y = isolate_vocal(x, SR, device=dev)
+            wall = time.perf_counter() - t0
+            key = (path, dev, htdemucs.inference_dtype(dev))
+            check(key in vocal._ht_cache,
+                  "train: isolate_vocal did not run the trained network")
+            cfg = vocal._ht_cache[key][0]
+    finally:
+        for k in [k for k in vocal._ht_cache if k[0] == path]:
+            del vocal._ht_cache[k]
+    check(y.shape == x.shape and bool(np.all(np.isfinite(y)))
+          and 1e-3 < float(np.abs(y).max()) <= 1.0,
+          f"train: isolate_vocal {y.shape}, non-finite, silent or over "
+          "full scale")
+    return {"track_s": TRAIN_SERVE_S, "wall_s": wall,
+            "config": {"channels": cfg.channels,
+                       "bottom": cfg.bottom_channels,
+                       "samplerate": cfg.samplerate},
+            "peak": float(np.abs(y).max())}
+
+
+def phase_train(dev) -> None:
+    """The htdemucs trainer on the card, a line each: (a)
+    :func:`train_one_step`, (b) :func:`train_main`, (c)
+    :func:`train_released`, (d) :func:`train_serves`; (e) none of the 13
+    kernels launched over the phase.  Run with cuDNN's and cuBLAS's TF32
+    switches on, as the htdemucs phase runs: the step turns them off."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tmp = Path(tempfile.mkdtemp(prefix="amw_train_"))
+    try:
+        for label, run in (("one_step", train_one_step),
+                           ("main", train_main),
+                           ("released", train_released),
+                           ("serves", train_serves)):
+            t0 = time.perf_counter()
+            out = run(dev, tmp)
+            emit({"phase": "train", "run": label, **out,
+                  "run_s": time.perf_counter() - t0})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = read_counts()
+    check(not any(launches.values()), f"train: launches {launches}")
+    emit({"phase": "train", "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -4559,6 +4827,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
         eng.close()
     phase_mesh(dev)
     phase_cli(dev)
+    phase_train(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}
