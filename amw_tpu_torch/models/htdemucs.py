@@ -48,11 +48,9 @@ its groups on its device, and sums the partial accumulators
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 import os
-import threading
 import warnings
 
 import numpy as np
@@ -61,6 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..precision import full_f32 as _full_f32
 
 SOURCES = ("drums", "bass", "other", "vocals")
 
@@ -80,31 +79,6 @@ def inference_dtype(device) -> torch.dtype:
     if mode == "auto":
         mode = "bf16" if torch.device(device).type == "cuda" else "f32"
     return torch.bfloat16 if mode == "bf16" else torch.float32
-
-
-_F32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _full_f32(dtype: torch.dtype):
-    """Full-f32 convolutions and matmuls for an f32 forward (TF32 off in
-    cuDNN and cuBLAS), serialised: the switches are process-wide.  A bf16
-    forward is left as it is.  The two switches are set and restored by
-    hand: ``torch.backends.cudnn.flags`` would also reset the other cuDNN
-    switches to its own defaults."""
-    if dtype != torch.float32:
-        yield
-        return
-    with _F32_LOCK:
-        prev = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            yield
-        finally:
-            (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 # --- config (a copy of htdemucs_jax.py:411-452, 581-657) ---------------------

@@ -2,7 +2,9 @@
 
 Counterpart of ``amw_tpu/ops/fdfilter.py``.  Every ``scipy.signal.lfilter``
 / ``filtfilt`` / ``fftconvolve`` call of the reference chain maps onto
-rFFT → complex multiply → irFFT (``torch.fft``, cuFFT on the GPU):
+rFFT → complex multiply → irFFT (``torch.fft``, cuFFT on the GPU; with
+``AMW_FFT_MXU=1``, power-of-two plans of 2^16 and more on the matmul FFT
+of ``ops/fft_mxu.py``, as in the JAX package):
 
 - :func:`lfilter_fd`   — causal filtering with zero initial state.
 - :func:`filtfilt_fd`  — zero-phase forward-backward filtering with scipy's
@@ -21,14 +23,39 @@ the ``nv`` forms take ``n_valid`` [B] aligned with the leading axis.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
-from . import validctx
+from . import fft_mxu, validctx
+
+
+def _use_mxu_fft(nfft: int) -> bool:
+    """The JAX package's rule: power-of-two plans of 2^16 and more take the
+    matmul FFT (``ops/fft_mxu.py``) when ``AMW_FFT_MXU`` is ``"1"`` (read
+    at each call)."""
+    if os.environ.get("AMW_FFT_MXU", "0") != "1":
+        return False
+    return nfft >= (1 << 16) and (nfft & (nfft - 1)) == 0
 
 
 def _apply_response(x, H, nfft: int, conj: bool = False):
-    """irfft(rfft(x, nfft) * H)[:nfft]; ``H`` complex or real."""
+    """irfft(rfft(x, nfft) * H)[:nfft] on ``torch.fft``, or on the matmul
+    FFT where :func:`_use_mxu_fft`; ``H`` complex (causal and exact
+    responses) or real (zero-phase power responses)."""
+    if _use_mxu_fft(nfft):
+        xr, xi = fft_mxu.rfft_mxu(x, nfft)
+        if H.is_complex():
+            Hr, Hi = H.real, H.imag
+            if conj:
+                Hi = -Hi
+            yr = xr * Hr - xi * Hi
+            yi = xr * Hi + xi * Hr
+        else:
+            yr = xr * H
+            yi = xi * H
+        return fft_mxu.irfft_mxu(yr, yi, nfft)
     if conj:
         H = torch.conj(H)
     X = torch.fft.rfft(x, n=nfft, dim=-1)

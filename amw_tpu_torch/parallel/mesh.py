@@ -4,8 +4,8 @@
 The JAX package serves across the devices of one process: a
 ``jax.sharding.Mesh`` over the local devices, batches sharded over its
 ``dp`` axis and long tracks over its ``sp`` axis under ``shard_map``.  The
-port keeps that single-process model.  A :class:`Mesh` is an array of
-positions, each holding the ``torch.device`` it runs on; the sharded paths
+port keeps that model.  A :class:`Mesh` is an array of positions, each
+holding the ``torch.device`` it runs on; the sharded paths
 (``parallel/batch.py``, ``parallel/timeshard.py``,
 ``models/htdemucs.separate_mesh``) loop over the positions in one process,
 move halos between neighbours by tensor copies and reduce over the
@@ -16,11 +16,29 @@ device (four on ``cuda:0``, or all on ``cpu`` in the tests), and the
 sharded path runs unchanged.  Params are placed once per distinct device
 (:func:`replicate`).
 
-``torch.distributed`` has one place only, :func:`init_distributed`, a
-helper for a pod mesh across processes (not ported, see
-:func:`make_pod_mesh`) that no serving code calls: CUDA devices show
-without a process group, and the serving mesh stays over the process's
-own devices, as the JAX engine's (``local_only=True``).
+A pod mesh spans the processes of a ``torch.distributed`` group
+(:func:`init_distributed`, then :func:`make_pod_mesh` on every rank, as
+every process of the JAX program builds the same mesh).  Each position
+carries its process index (``Mesh.process_index``, the rank that owns
+it); a rank holds a ``torch.device`` only at its own positions (``None``
+at the others'), and :meth:`Mesh.distinct_devices` and :func:`replicate`
+cover only those.  Every sp row lies within one process and dp spans
+processes (:func:`pod_layout`), so the halos and reductions of the time
+shard stay inside a process, and the only traffic between processes is
+the job's: ``timeshard.sp_batch_master`` masters each rank's own rows and
+gathers every row's output in row order, so that every rank returns the
+whole batch.
+
+That exchange runs on host tensors over gloo, and :func:`init_distributed`
+joins a gloo group on every device type.  The pod moves only job I/O
+between processes, and never a device collective, so NCCL would bring
+nothing but its constraint of one device a rank: NCCL refuses two ranks
+on one GPU, as a pod of positions on one card has (``chip_smoke.py``'s
+``pod`` phase runs two ranks on ``cuda:0``).
+
+The serving engine joins the group from its coordinator settings
+(``runtime/engine.py``), and its serving mesh stays over the process's
+own GPUs, as the JAX engine's (``local_only=True``).
 """
 
 from __future__ import annotations
@@ -34,34 +52,69 @@ from ..convert import to_device
 
 class Mesh:
     """A grid of positions: ``devices``, a numpy object array of
-    ``torch.device`` (repeats allowed), with one name per axis."""
+    ``torch.device`` (repeats allowed), with one name per axis.  In a pod
+    mesh ``process_index`` gives each position's rank, and ``devices``
+    holds ``None`` at the positions of other ranks; by default every
+    position is this process's."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, process_index=None):
         arr = np.array(devices, dtype=object)
         devs = np.empty(arr.shape, dtype=object)
         for idx in np.ndindex(arr.shape):
-            devs[idx] = torch.device(arr[idx])
+            devs[idx] = None if arr[idx] is None else torch.device(arr[idx])
         self.axis_names = tuple(axis_names)
         if devs.ndim != len(self.axis_names):
             raise ValueError(f"{devs.ndim}-D devices for axes "
                              f"{self.axis_names}")
         self.devices = devs
+        if process_index is None:
+            process_index = np.full(devs.shape, _rank(), dtype=np.int64)
+        self.process_index = np.asarray(process_index, dtype=np.int64)
+        if self.process_index.shape != devs.shape:
+            raise ValueError(f"process_index {self.process_index.shape} "
+                             f"for positions {devs.shape}")
 
     @property
     def shape(self) -> dict:
         """Positions along each axis, by name (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.devices.shape))
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether positions belong to more than one process."""
+        return len(np.unique(self.process_index)) > 1
+
     def distinct_devices(self) -> list:
-        """The devices the positions sit on, each once, in position order."""
+        """The devices this process's positions sit on, each once, in
+        position order."""
         seen: list = []
         for d in self.devices.flat:
-            if d not in seen:
+            if d is not None and d not in seen:
                 seen.append(d)
         return seen
 
     def __repr__(self):
-        return f"Mesh({self.shape}, {self.distinct_devices()})"
+        procs = (f", processes {sorted(set(self.process_index.flat))}"
+                 if self.spans_processes else "")
+        return f"Mesh({self.shape}, {self.distinct_devices()}{procs})"
+
+
+def _rank() -> int:
+    """This process's rank in the ``torch.distributed`` group, 0 outside
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _group_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def _local_devices() -> list:
@@ -105,17 +158,27 @@ def make_mesh2d(dp: int, sp: int, axes: tuple[str, str] = ("dp", "sp"), *,
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> bool:
-    """Join a ``torch.distributed`` process group (NCCL where CUDA is
-    available, else gloo).  With no coordinator and no process count
-    configured (the single-host case, and all tests) this is a no-op
-    returning False.  ``coordinator``: ``host:port`` of process 0, or
-    ``"auto"`` for the launcher's environment (``MASTER_ADDR``,
-    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``)."""
+    """Join a ``torch.distributed`` process group over gloo (the module
+    docstring says why gloo on every device type).  With no coordinator
+    and no process count configured (the single-host case, and most
+    tests) this is a no-op returning False.  ``coordinator``: ``host:port``
+    of process 0, or ``"auto"`` for the launcher's environment
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).  Where
+    this process already is in a group of that size and rank, it stays
+    there; a group that differs, or a failed join, raises."""
     if coordinator is None and num_processes is None:
         return False
     import torch.distributed as dist
 
-    kw = {"backend": "nccl" if torch.cuda.is_available() else "gloo"}
+    if dist.is_initialized():
+        want = {"world size": num_processes, "rank": process_id}
+        have = {"world size": dist.get_world_size(), "rank": dist.get_rank()}
+        for k, v in want.items():
+            if v is not None and int(v) != have[k]:
+                raise RuntimeError(f"already in a torch.distributed group "
+                                   f"of {have}, asked for {k} {v}")
+        return True
+    kw = {"backend": "gloo"}
     if coordinator and coordinator != "auto":
         kw["init_method"] = f"tcp://{coordinator}"
     else:
@@ -166,40 +229,74 @@ def pod_layout(devices, sp: int | None = None) -> np.ndarray:
     return grid
 
 
+class _Position:
+    """A position of a pod before it is placed: its rank and device."""
+
+    def __init__(self, process_index: int, device: str):
+        self.process_index = process_index
+        self.device = device
+
+
 def make_pod_mesh(sp: int | None = None,
                   axes: tuple[str, str] = ("dp", "sp"), *,
                   devices=None) -> Mesh:
-    """(dp, sp) mesh over this process's devices, which on one host is
-    ``make_mesh2d(n_local // sp, sp)``.  A pod mesh across the processes of
-    a ``torch.distributed`` group needs every rank to run the same
-    program, which the port's single-process mesh does not do: it raises
-    ``NotImplementedError`` there."""
+    """(dp, sp) mesh over every process's positions, each sp row within
+    one process (:func:`pod_layout`); on one process
+    ``make_mesh2d(n_local // sp, sp)``.  ``devices``: this process's
+    positions (default: its GPUs).
+
+    Inside a ``torch.distributed`` group of more than one process every
+    rank calls it, as every process of the JAX program builds the mesh:
+    the ranks' positions are gathered (one ``all_gather_object`` over the
+    group, which must have a CPU backend such as :func:`init_distributed`'s
+    gloo), then each rank lays out the same grid, holding devices only at
+    its own positions.  A layout that :func:`pod_layout` refuses raises
+    the same ``ValueError`` on every rank, after the gather."""
+    devs = _resolved(devices) if devices is not None else _local_devices()
+    if _group_size() == 1:
+        return Mesh(pod_layout(devs, sp), axes)
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "a pod mesh across the processes of a torch.distributed group "
-            "is not ported (amw_tpu/parallel/mesh.py, make_pod_mesh; see "
-            "ROADMAP.md): the port's meshes are over one process's devices")
-    devs = _resolved(devices) if devices is not None else _local_devices()
-    return Mesh(pod_layout(devs, sp), axes)
+    if "gloo" not in str(dist.get_backend()):
+        raise ValueError(f"a pod mesh exchanges host tensors: the group's "
+                         f"backend {dist.get_backend()!r} has no gloo "
+                         f"(init_distributed joins one)")
+    names: list = [None] * dist.get_world_size()
+    dist.all_gather_object(names, [str(d) for d in devs])
+    grid = pod_layout([_Position(p, d) for p, ds in enumerate(names)
+                       for d in ds], sp)
+    rank = dist.get_rank()
+    return Mesh([[q.device if q.process_index == rank else None for q in row]
+                 for row in grid], axes,
+                process_index=[[q.process_index for q in row]
+                               for row in grid])
 
 
 def device_type(mesh: Mesh) -> str:
-    """The one device type of the mesh's positions (graphs are planned per
-    type: ``fft_staged.site_plan``); ``ValueError`` where they mix."""
-    types = {d.type for d in mesh.devices.flat}
+    """The one device type of this process's positions (graphs are planned
+    per type: ``fft_staged.site_plan``); ``ValueError`` where they mix."""
+    types = {d.type for d in mesh.distinct_devices()}
     if len(types) != 1:
         raise ValueError(f"mesh positions on more than one device type: "
                          f"{sorted(types)}")
     return types.pop()
 
 
+def require_one_process(mesh: Mesh, what: str) -> None:
+    """``ValueError`` for a path that runs every position in this process
+    (``what``) on a mesh that spans processes."""
+    if mesh.spans_processes:
+        raise ValueError(f"{what} runs every position in one process; "
+                         f"this mesh spans processes "
+                         f"{sorted(set(mesh.process_index.flat))} (use "
+                         f"timeshard.sp_batch_master on a pod mesh)")
+
+
 def axis_devices(mesh: Mesh, axis: str | None = None) -> list:
     """The devices of the positions along ``axis`` (default the first),
     at index 0 of every other axis: where a batch sharded over that axis
     runs (the JAX package's ``P(axis)``, replicated over the others)."""
+    require_one_process(mesh, "a batch over the positions of one axis")
     axis = mesh.axis_names[0] if axis is None else axis
     k = mesh.axis_names.index(axis)
     idx = [0] * mesh.devices.ndim

@@ -32,6 +32,14 @@ position order in float32:
   package's bars (≤ −22 dBFS for the whole output, ≤ −34 dBFS for the
   histogram term) and to the JAX package's sp denoiser.
 
+On a pod mesh (``mesh.make_pod_mesh`` in a group of processes) every
+rank runs the same call on the same input, as every process of the JAX
+program runs the same jit: each rank masters the dp rows whose positions
+are its own (an sp row never straddles processes), then every row's
+output, and its stats, is broadcast by its rank in row order
+(``_gather_rows``, host tensors over gloo), so that every rank returns
+the whole batch, equal to one process's over the same grid.
+
 Surface: the engine's v2 ``(config, pro)`` pair, as
 ``MasteringEngine.master_v2_bytes`` takes it — PRE [rumble] [denoise]
 [deesser], any module list the chain accepts (amount blend included), POST
@@ -183,9 +191,12 @@ def build_sp_master(
     Returns ``(fn, params, n_pad)``: ``fn(x, params)`` takes ``x`` [C,
     n_pad] (with ``batch``, [B, C, n_pad] over a 2-D (dp, sp) mesh: each dp
     row time-shards B / dp of the tracks), numpy or a tensor, and returns
-    the output as a tensor on the first position's device; pad the input
-    with zeros to ``n_pad`` and slice the output back to ``n_total``.
-    ``params``: one copy per distinct device of the mesh, by device.
+    the output as a tensor on this process's first position's device;
+    pad the input with zeros to ``n_pad`` and slice the output back to
+    ``n_total``.  ``params``: one copy per distinct device of this
+    process's positions, by device.  On a pod mesh every rank calls
+    ``fn`` on the same input and gets the whole output; ``fn.last_exchange``
+    is then the last call's ``{"ms", "bytes"}`` of the rows' exchange.
 
     ``stats=True`` makes ``fn`` return the engine's v2 result dict —
     ``{out, before_lufs, after_lufs, peak, finite}``, the scalars computed
@@ -500,6 +511,9 @@ def build_sp_master(
                 "peak": _pmax([o.abs().amax(dim=(-2, -1)) for o in outs]),
                 "finite": nonfinite == 0}
 
+    owners = mesh.process_index.reshape(-1, n_dev)[:, 0]
+    home = mesh.distinct_devices()[0]
+
     def fn(x, params):
         x = torch.as_tensor(x, dtype=torch.float32)
         xb = x if batch else x[None]
@@ -509,25 +523,69 @@ def build_sp_master(
             raise ValueError(f"batch {B} not divisible by dp axis "
                              f"{len(used)}")
         per = B // len(used)
-        results = []
+        results = {}
         with torch.inference_mode():
             for r, devs in enumerate(used):
+                if devs[0] is None:  # another process's row
+                    continue
                 xr = xb[r * per:(r + 1) * per]
                 xs = [xr[..., p * chunk:(p + 1) * chunk].to(d)
                       for p, d in enumerate(devs)]
-                results.append(run_row(xs, list(devs), params))
-            home = used[0][0]
-            out = torch.cat([torch.cat([o.to(home) for o in res["out"]],
-                                       dim=-1) for res in results])
+                res = run_row(xs, list(devs), params)
+                results[r] = {"out": torch.cat(
+                    [o.to(home) for o in res["out"]], dim=-1),
+                    **{k: res[k].to(home) for k in STATS if stats}}
+            if mesh.spans_processes:
+                results, fn.last_exchange = _gather_rows(
+                    results, owners[:len(used)], (per,) + xb.shape[1:],
+                    home, stats)
+            out = torch.cat([results[r]["out"] for r in range(len(used))])
             if not stats:
                 return out if batch else out[0]
             res = {"out": out}
-            for k in ("before_lufs", "after_lufs", "peak", "finite"):
-                res[k] = torch.cat([r_[k].to(home) for r_ in results])
+            for k in STATS:
+                res[k] = torch.cat([results[r][k] for r in range(len(used))])
             return res if batch else {k: v[0] for k, v in res.items()}
 
     fn.build_seconds = build_s
+    fn.last_exchange = None
     return fn, params_dev, n_pad
+
+
+STATS = ("before_lufs", "after_lufs", "peak", "finite")
+
+
+def _gather_rows(done: dict, owners, shape: tuple, home, stats: bool):
+    """Every row's result on every rank of a pod mesh: row ``r``, mastered
+    by the rank ``owners[r]`` (its entry of ``done``), broadcast by that
+    rank as host tensors over the group (gloo), in row order.  Returns the
+    rows by index and ``{"ms", "bytes"}``: the exchange's host wall and the
+    bytes of the rows broadcast (outputs ``shape`` float32, and with
+    ``stats`` the four stats as float32 [4, rows])."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    nbytes = 0
+    out = {}
+    for r, owner in enumerate(owners):
+        mine = r in done
+        buf = (done[r]["out"].cpu() if mine
+               else torch.empty(shape, dtype=torch.float32))
+        dist.broadcast(buf, src=int(owner))
+        nbytes += buf.numel() * buf.element_size()
+        row = done[r] if mine else {"out": buf.to(home)}
+        if stats:
+            sbuf = (torch.stack([done[r][k].to(torch.float32).cpu()
+                                 for k in STATS]) if mine
+                    else torch.empty((len(STATS), shape[0]),
+                                     dtype=torch.float32))
+            dist.broadcast(sbuf, src=int(owner))
+            nbytes += sbuf.numel() * sbuf.element_size()
+            if not mine:
+                row.update({k: sbuf[i].to(home) for i, k in enumerate(STATS)})
+                row["finite"] = row["finite"] > 0.5
+        out[r] = row
+    return out, {"ms": (time.perf_counter() - t0) * 1e3, "bytes": nbytes}
 
 
 def _run_variant(p: int, key: str, fns: dict, vparams: list,
@@ -552,7 +610,9 @@ def _run_variant(p: int, key: str, fns: dict, vparams: list,
 
 def sp_master(x: np.ndarray, sr: int, mesh: Mesh, **kw) -> np.ndarray:
     """Master one long [C, N] track sharded over the mesh by time.  Accepts
-    the engine's v2 surface: chain_config=, pro=, target_lufs=, style=."""
+    the engine's v2 surface: chain_config=, pro=, target_lufs=, style=.
+    On a pod mesh every rank calls it with the same track: the first dp
+    row's rank masters it, and every rank returns it."""
     x = np.atleast_2d(np.asarray(x, np.float32))
     C, n = x.shape
     fn, params, n_pad = build_sp_master(sr, n, C, mesh, **kw)
@@ -563,7 +623,10 @@ def sp_master(x: np.ndarray, sr: int, mesh: Mesh, **kw) -> np.ndarray:
 def sp_batch_master(xb: np.ndarray, sr: int, mesh: Mesh, **kw) -> np.ndarray:
     """Master a batch of long [B, C, N] tracks over a 2-D ``(dp, sp)`` mesh:
     the batch is data-parallel over the first mesh axis while each track is
-    time-sharded over the second.  ``B`` must divide by the dp size."""
+    time-sharded over the second.  ``B`` must divide by the dp size.  On
+    a pod mesh every rank calls it with the same batch, masters its own
+    rows and returns the whole batch; a batch that does not divide is
+    refused on every rank before any exchange."""
     xb = np.asarray(xb, np.float32)
     B, C, n = xb.shape
     dp = mesh.shape[mesh.axis_names[0]]

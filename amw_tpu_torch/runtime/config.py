@@ -11,11 +11,6 @@ Left out, and ignored where a deployment's environment sets them:
 
 - ``compilation_cache_dir``: the directory of XLA's persistent
   compilation cache, which the port has no counterpart of;
-- ``engine_coordinator``, ``engine_num_processes`` and
-  ``engine_process_id``: the JAX engine joins its multi-host runtime with
-  them so that a TPU host's chips show; CUDA devices show without a
-  process group, and the port's serving mesh is over one process's GPUs
-  (``parallel/mesh.py``), so it joins none;
 - fields that no code of either package reads: ``ai_limit_free``,
   ``ai_limit_pro`` and ``ai_limit_studio`` (the AI routes' daily limits
   are ``ai.TIER_DAILY_LIMITS``), ``ai_prompt_report``,
@@ -29,6 +24,12 @@ Left out, and ignored where a deployment's environment sets them:
   ``demucs_model`` (the separator reads ``htdemucs_checkpoint``), and
   ``max_upload_mb``, ``allowed_extensions`` and ``temp_dir`` (uploads are
   held to the per-format and per-tier limits above).
+
+``engine_coordinator``, ``engine_num_processes`` and ``engine_process_id``
+are kept, with one deliberate difference: the JAX engine swallows a failed
+join (its ``except Exception`` around the mesh setup) and serves alone
+while its peers wait in the rendezvous; the port's engine raises, since a
+rank that serves alone is a fault that a fallback would hide.
 
 Also left out, but not ignored: ``mastering_trace`` and
 ``mastering_trace_lufs_stages``, which ``utils/trace.py`` reads from the
@@ -131,6 +132,17 @@ class Settings:
     # trailing silence, gated out of BS.1770, and sliced off before export.
     # 0 = off (every length exact).
     engine_sp_quantize_sec: float = 30.0
+    # A pod of processes (parallel/mesh.py, docs/SCALING.md): when set,
+    # the engine joins a torch.distributed group at start
+    # (mesh.init_distributed) and raises where the join fails; its serving
+    # mesh stays over the process's own GPUs.  "auto" = the launcher's
+    # environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); "" = one
+    # process (default).  Otherwise "host:port" of process 0, with
+    # engine_num_processes (0: from the environment) and engine_process_id
+    # (-1: from the environment).
+    engine_coordinator: str = ""
+    engine_num_processes: int = 0
+    engine_process_id: int = -1
     # Build and run the default chain's graph for these buckets at service
     # start (comma separated seconds; "" = off).
     engine_warmup_buckets: str = ""

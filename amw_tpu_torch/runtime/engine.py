@@ -24,7 +24,10 @@ distinct device), and uploads longer than ``engine_sp_threshold_sec``
 (600 s: DJ sets) are time-sharded over the positions
 (``_master_v2_sp``, ``parallel/timeshard.py``, the counterpart of
 ``amw_tpu/parallel/timeshard.py``).  A CPU engine, or one on a host with
-one GPU, builds no mesh and serves as before.
+one GPU, builds no mesh and serves as before.  Where
+``engine_coordinator`` is set, the engine first joins the pod's process
+group (``parallel/mesh.init_distributed``), and raises where the join
+fails.
 
 Entry points run on ``cuda`` unless the engine is made with
 ``device="cpu"``; without a GPU a default engine raises
@@ -118,6 +121,7 @@ class MasteringEngine:
         self.bucket = bucket
         self.micro_batch = (settings.engine_micro_batch
                             if micro_batch is None else micro_batch)
+        self._join_pod()
         self.mesh = mesh if mesh is not None else self._serving_mesh()
         n_mesh = self.mesh.devices.size if self.mesh is not None else 1
         # LRU-capped: every distinct (bucket, chain-config, target, style)
@@ -144,12 +148,28 @@ class MasteringEngine:
                 max_batch=settings.engine_max_micro_batch * n_mesh)
             self._batcher.start()
 
+    @staticmethod
+    def _join_pod() -> None:
+        """The JAX engine's join: with ``engine_mesh`` on and
+        ``engine_coordinator`` set, join the pod's process group
+        (``parallel/mesh.init_distributed``) before the serving mesh is
+        built.  A failed join raises (the JAX engine swallows it and
+        serves alone: ``runtime/config.py`` says why the port does not)."""
+        if not (settings.engine_mesh and settings.engine_coordinator):
+            return
+        from ..parallel import mesh as mesh_mod
+
+        mesh_mod.init_distributed(
+            settings.engine_coordinator,
+            settings.engine_num_processes or None,
+            None if settings.engine_process_id < 0
+            else settings.engine_process_id)
+
     def _serving_mesh(self):
         """The JAX engine's rule: with ``engine_mesh`` on, a mesh of this
-        process's GPUs where it has more than one; else ``None``.  (The
-        JAX engine first joins its multi-host runtime where a coordinator
-        is set, so that a TPU host's chips show; CUDA devices show without
-        a process group, so the port joins none.)"""
+        process's GPUs where it has more than one; else ``None``.  In a
+        pod the serving mesh stays over the process's own GPUs: a request
+        lands on one process (docs/SCALING.md)."""
         if not settings.engine_mesh or self.device.type != "cuda":
             return None
         from ..parallel.mesh import make_mesh

@@ -264,7 +264,34 @@ Phases, each printing JSON lines:
              of (b) served by ``models/vocal`` (``AMW_HTDEMUCS_CKPT``):
              ``isolate_vocal`` of a 30 s track; (e) none of the 13 kernels
              launched over the phase;
-14. a ``kernels`` line: each kernel's launches on the path that uses it
+14. mxu     — the matmul FFT route (``AMW_FFT_MXU=1``,
+             ``amw_tpu_torch/ops/fft_mxu.py``: cuBLAS products at full f32
+             and PyTorch's elementwise kernels, no hand kernel): (a) one
+             rfft → K-weighting response → irfft pair over the 180 s
+             batch's 16 rows at 2^23 through ``fdfilter._apply_response``
+             on the route and on ``torch.fft``: the route's error against
+             the library's (<= -90 dBFS), the CUDA-event ms of each, the
+             route's bound (its bytes, its f32 operations at
+             ``F32_FLOPS``), the output with TF32 switched on globally
+             (bit for bit the same), and, for the record, the route with
+             its TF32 guard taken out; (b) the v1 180 s batch under the
+             variable against the same graph on the default route, in
+             exact mode (the default: launches ``V1_STAGED`` on both; its
+             ``_apply_response`` sites are edge windows below 2^16, so
+             the route's calls are counted, not required) and in fast
+             mode (``GraphSpec(exact=False)``: its meter filters the
+             whole batch on the route, calls > 0, launches equal on both
+             routes): outputs within -90 dBFS and 0.01 LU, walls;
+15. pod     — two worker processes (``chip_smoke.py --pod-worker``), each
+             ``init_distributed`` on 127.0.0.1 (gloo) with two positions
+             on ``cuda:0``, build ``make_pod_mesh(sp=2)`` and run
+             ``sp_batch_master`` on 2 × 60 s stereo tracks: each rank's
+             whole batch within -90 dBFS of this process's
+             ``sp_batch_master`` over ``make_mesh2d(2, 2)`` on ``cuda:0``,
+             each rank's cold and warm wall, the exchange's ms and bytes,
+             the 13 kernels' launches by rank (summing to this process's);
+             a worker's non-zero exit or timeout fails the run;
+16. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -290,6 +317,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -330,7 +358,9 @@ from amw_tpu_torch.ops.spectral import (build_reference_match,
                                         spectral_envelope)
 from amw_tpu_torch.ops.tplimit import build_true_peak_limiter
 from amw_tpu_torch.parallel import timeshard
-from amw_tpu_torch.parallel.mesh import make_mesh
+from amw_tpu_torch.ops import fft_mxu
+from amw_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                         make_mesh2d, make_pod_mesh)
 from amw_tpu_torch.qa import gates, mastering_regression
 from amw_tpu_torch.runtime import ai
 from amw_tpu_torch.runtime.bot import Bot
@@ -4707,6 +4737,318 @@ def phase_train(dev) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# ---- the matmul FFT route (AMW_FFT_MXU=1) ----------------------------------
+
+MXU_REPS = 10
+
+
+@contextlib.contextmanager
+def route_calls():
+    """The matmul FFT route's forward transforms inside the block
+    (``fft_mxu.rfft_mxu``, once a routed ``fdfilter._apply_response``),
+    counted in a one-element list."""
+    inner = fft_mxu.rfft_mxu
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    fft_mxu.rfft_mxu = counted
+    try:
+        yield calls
+    finally:
+        fft_mxu.rfft_mxu = inner
+
+
+def mxu_cfft_flops(n: int, rows: int) -> float:
+    """f32 operations of ``fft_mxu._cfft`` on ``rows`` rows of ``n``
+    points, as the code runs them: at 128 points or fewer four real
+    products with the DFT matrix (2·n² a row each) and two sums; above,
+    the B-point transforms, the twiddle (six a point), the A-point ones."""
+    if n <= 128:
+        return rows * (8.0 * n * n + 2.0 * n)
+    a, b = fft_mxu._split(n)
+    return (mxu_cfft_flops(b, rows * a) + 6.0 * rows * n
+            + mxu_cfft_flops(a, rows * b))
+
+
+def mxu_pair_flops(nfft: int, rows: int) -> float:
+    """rfft → complex response → irfft on the route: two half-length
+    transforms, the unpack and pack (16 a bin each), the product (6 a
+    bin) and the inverse's 1/n (2 a point)."""
+    h = nfft // 2
+    return (2 * mxu_cfft_flops(h, rows) + rows * (h + 1) * (16 + 6 + 16)
+            + rows * 2.0 * h)
+
+
+def mxu_pair(dev, xb: np.ndarray) -> dict:
+    """(a) One transform pair over the batch's rows on the route and on
+    ``torch.fft``; its error, times and bound, and the error with TF32
+    on."""
+    nfft = LONG_NFFT
+    x = torch.from_numpy(xb.reshape(-1, xb.shape[-1])).to(dev)
+    Hp = torch.from_numpy(meters.k_weight_response(SR, nfft)).to(dev)
+    H = torch.complex(Hp[0], Hp[1])
+
+    def pair():
+        return fdfilter._apply_response(x, H, nfft)
+
+    with torch.no_grad():
+        with env_set(AMW_FFT_MXU=None):
+            y_lib = pair()
+            lib_ms = cuda_ms(pair, reps=MXU_REPS)
+        with env_set(AMW_FFT_MXU="1"), route_calls() as calls:
+            y = pair()
+            torch.cuda.synchronize()
+            check(calls[0] == 1, f"mxu pair: {calls[0]} route calls")
+            route_ms = cuda_ms(pair, reps=MXU_REPS)
+            saved = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+            guard = fft_mxu.full_f32
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+                y_tf32 = pair()
+                fft_mxu.full_f32 = lambda *a: contextlib.nullcontext()
+                y_unguarded = pair()
+            finally:
+                fft_mxu.full_f32 = guard
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = saved
+        err, rel = rel_err(y, y_lib)
+        err_tf32, _ = rel_err(y_tf32, y_lib)
+        err_unguarded, _ = rel_err(y_unguarded, y_lib)
+        same_tf32 = bool(torch.equal(y_tf32, y))
+        del y, y_lib, y_tf32, y_unguarded
+    err_db = 20 * np.log10(max(err, 1e-30))
+    check(err_db <= PARITY_DBFS, f"mxu pair: route vs torch.fft "
+          f"{err_db:.1f} dBFS")
+    check(same_tf32 and err_tf32 == err, f"mxu pair: with TF32 on, error "
+          f"{err_tf32} against {err}")
+    rows = x.shape[0]
+    nbytes = 4.0 * rows * (x.shape[-1] + nfft) + 8.0 * (nfft // 2 + 1)
+    flops = mxu_pair_flops(nfft, rows)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"rows": rows, "n": int(x.shape[-1]), "nfft": nfft,
+            "max_abs_err": err, "max_rel_err": rel, "max_err_dbfs": err_db,
+            "max_abs_err_tf32_on": err_tf32, "equal_with_tf32_on": same_tf32,
+            "max_abs_err_tf32_unguarded": err_unguarded,
+            "ms": route_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "ms_over_bound": route_ms / b_ms}
+
+
+def mxu_v1(dev, xb: np.ndarray, nv: np.ndarray, exact: bool) -> dict:
+    """(b) The v1 180 s batch under ``AMW_FFT_MXU=1`` against the same
+    graph on the default route (the variable is read at each call):
+    launches, route calls, output and loudness, walls."""
+    n = xb.shape[-1]
+    spec = GraphSpec(sr=SR, n=n, channels=2, exact=exact)
+    t0 = time.perf_counter()
+    params, fn, names = build_v1_pipeline(spec, target_lufs=TARGET_LUFS,
+                                          style="standard", device=dev)
+    build_s = time.perf_counter() - t0
+    x_d = torch.from_numpy(xb).to(dev)
+    nv_d = torch.from_numpy(nv).to(dev)
+
+    def step():
+        return fn(x_d, params, nv_d)
+
+    out = {}
+    with torch.no_grad():
+        for route, flag in (("default", None), ("mxu", "1")):
+            with env_set(AMW_FFT_MXU=flag), route_calls() as calls:
+                torch.cuda.synchronize()
+                reset_counts()
+                y = step()
+                torch.cuda.synchronize()
+                out[route] = {"launches": read_counts(), "calls": calls[0],
+                              "y": y.cpu().numpy()}
+                del y
+                out[route]["wall_s"] = steady_wall(step, 3)
+    y_mxu, y_def = out["mxu"].pop("y"), out["default"].pop("y")
+    label = "exact" if exact else "fast"
+    check(bool(np.all(np.isfinite(y_mxu))), f"mxu v1 {label}: non-finite")
+    err = float(np.max(np.abs(y_mxu - y_def)))
+    err_db = 20 * np.log10(max(err, 1e-30))
+    d_lu = float(np.max(np.abs(track_lufs(y_mxu, nv)
+                               - track_lufs(y_def, nv))))
+    check(err_db <= PARITY_DBFS, f"mxu v1 {label}: {err_db:.1f} dBFS from "
+          f"the default route")
+    check(d_lu <= METER_LU, f"mxu v1 {label}: loudness delta {d_lu} LU")
+    check(out["mxu"]["launches"] == out["default"]["launches"],
+          f"mxu v1 {label}: launches {out['mxu']['launches']} against "
+          f"{out['default']['launches']}")
+    if exact:
+        expect = {**{name: 0 for name in COUNTERS}, **V1_STAGED}
+        check(out["mxu"]["launches"] == expect,
+              f"mxu v1 exact: launches {out['mxu']['launches']}")
+    else:
+        check(out["mxu"]["calls"] > 0, "mxu v1 fast: the route never ran")
+    return {"mode": label, "stages": names, "params_build_s": build_s,
+            "route_calls": out["mxu"]["calls"],
+            "launches": out["mxu"]["launches"],
+            "max_err_vs_default": err, "max_err_vs_default_dbfs": err_db,
+            "max_lu_delta_vs_default": d_lu,
+            "wall_s_per_batch": out["mxu"]["wall_s"],
+            "default_wall_s_per_batch": out["default"]["wall_s"],
+            "realtime_factor": BATCH * LONG[0] / out["mxu"]["wall_s"]}
+
+
+def phase_mxu(dev) -> None:
+    """The matmul FFT route on the card: (a) :func:`mxu_pair`, (b)
+    :func:`mxu_v1` in exact and in fast mode, a line each."""
+    t_phase = time.perf_counter()
+    xb, nv = make_batch(*LONG, BATCH, 2)
+    t0 = time.perf_counter()
+    emit({"phase": "mxu", "run": "pair", **mxu_pair(dev, xb),
+          "run_s": time.perf_counter() - t0})
+    for exact in (True, False):
+        t0 = time.perf_counter()
+        emit({"phase": "mxu", "run": "v1_180s", **mxu_v1(dev, xb, nv, exact),
+              "run_s": time.perf_counter() - t0})
+    emit({"phase": "mxu", "phase_s": time.perf_counter() - t_phase})
+
+
+# ---- the pod mesh across processes ------------------------------------------
+
+POD_RANKS = 2
+POD_S = 60.0
+POD_SEED = 70
+POD_TIMEOUT_S = 300  # a worker process, its start included
+
+
+def pod_batch() -> np.ndarray:
+    return np.stack([make_track(SR, POD_S, seed=POD_SEED + i)
+                     for i in range(POD_RANKS)])
+
+
+def pod_worker(rank: int, port: int, out_dir: Path) -> None:
+    """One rank of the pod (``--pod-worker``): join the group, build the
+    pod mesh of two positions on ``cuda:0`` a rank, master the batch
+    (cold: ``sp_batch_master``, its build included; warm: the built
+    graph's second call), and write the batch and a report to
+    ``out_dir``."""
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    init_distributed(f"127.0.0.1:{port}", POD_RANKS, rank)
+    mesh = make_pod_mesh(sp=2, devices=["cuda:0"] * 2)
+    check(mesh.shape == {"dp": POD_RANKS, "sp": 2}
+          and mesh.process_index.tolist() == [[r, r] for r in
+                                              range(POD_RANKS)],
+          f"pod rank {rank}: mesh {mesh}")
+    xb = pod_batch()
+    n = xb.shape[-1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        y = timeshard.sp_batch_master(xb, SR, mesh, target_lufs=TARGET_LUFS)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = read_counts()
+        fn, params, n_pad = timeshard.build_sp_master(
+            SR, n, xb.shape[1], mesh, batch=True, target_lufs=TARGET_LUFS)
+        xp = np.pad(xb, ((0, 0), (0, 0), (0, n_pad - n)))
+        fn(xp, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_warm = fn(xp, params)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        same = bool(np.array_equal(y_warm.cpu().numpy()[..., :n], y))
+    np.save(out_dir / f"pod{rank}.npy", y)
+    (out_dir / f"pod{rank}.json").write_text(json.dumps({
+        "rank": rank, "cold_s": cold_s, "warm_s": warm_s,
+        "exchange": fn.last_exchange, "launches": launches,
+        "warm_equals_cold": same, "n_pad": n_pad}))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def pod_run_workers(tmp: Path) -> float:
+    """Start the pod's worker processes on a free 127.0.0.1 port and wait
+    for them, each within ``POD_TIMEOUT_S`` of the start (killed past
+    it); a worker's log is printed to stderr where it failed, and the run
+    fails unless every worker exited 0.  Returns the wall."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(POD_RANKS):
+            log = open(tmp / f"pod{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--pod-worker", str(rank), str(port), str(tmp)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log))
+        rcs = []
+        for p, _ in procs:
+            left = max(POD_TIMEOUT_S - (time.perf_counter() - t0), 1.0)
+            try:
+                rcs.append(p.wait(timeout=left))
+            except subprocess.TimeoutExpired:
+                rcs.append(f"timeout {POD_TIMEOUT_S} s")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank, rc in enumerate(rcs):
+        if rc != 0:
+            print((tmp / f"pod{rank}.log").read_text()[-4000:],
+                  file=sys.stderr, flush=True)
+    check(rcs == [0] * POD_RANKS, f"pod workers exited {rcs}")
+    return time.perf_counter() - t0
+
+
+def phase_pod(dev) -> None:
+    """The pod mesh across two processes on the card against this
+    process's single-process mesh of the same grid."""
+    t_phase = time.perf_counter()
+    xb = pod_batch()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ref = timeshard.sp_batch_master(
+            xb, SR, make_mesh2d(2, 2, devices=["cuda:0"] * 4),
+            target_lufs=TARGET_LUFS)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        ref_launches = read_counts()
+    tmp = Path(tempfile.mkdtemp(prefix="pod-"))
+    try:
+        workers_s = pod_run_workers(tmp)
+        ranks = []
+        for rank in range(POD_RANKS):
+            rep = json.loads((tmp / f"pod{rank}.json").read_text())
+            y = np.load(tmp / f"pod{rank}.npy")
+            check(y.shape == xb.shape and bool(np.all(np.isfinite(y))),
+                  f"pod rank {rank}: output {y.shape}")
+            err = float(np.max(np.abs(y.astype(np.float64) - ref)))
+            rep["max_err_vs_single"] = err
+            rep["max_err_vs_single_dbfs"] = 20 * np.log10(max(err, 1e-30))
+            check(rep["max_err_vs_single_dbfs"] <= PARITY_DBFS,
+                  f"pod rank {rank}: {rep['max_err_vs_single_dbfs']:.1f} "
+                  f"dBFS from the single-process mesh")
+            check(rep["warm_equals_cold"], f"pod rank {rank}: warm != cold")
+            ranks.append(rep)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summed = {k: sum(r["launches"][k] for r in ranks) for k in ref_launches}
+    check(summed == ref_launches, f"pod: launches by rank {summed} against "
+          f"the single process's {ref_launches}")
+    emit({"phase": "pod", "ranks": ranks, "tracks": POD_RANKS,
+          "track_s": POD_S, "single_process_s": ref_s,
+          "single_process_launches": ref_launches, "workers_s": workers_s,
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -4828,6 +5170,8 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
     phase_mesh(dev)
     phase_cli(dev)
     phase_train(dev)
+    phase_mxu(dev)
+    phase_pod(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}
@@ -4852,4 +5196,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pod-worker"]:
+        pod_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    else:
+        main()

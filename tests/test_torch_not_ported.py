@@ -6,10 +6,10 @@ left out name files that exist.
 Every such ``NotImplementedError`` names the JAX package's module file
 (``amw_tpu/...py``) instead of a queue number of ROADMAP.md, so a
 renumbering of the queue cannot leave it pointing at the wrong item; a
-raise for a module not ported points at ROADMAP.md, one for a job the
-engine does points at the port's entry point.  Each raise is triggered
-here at a tiny size on the CPU, and every module file and entry point it
-names must exist.
+raise for a module not ported would point at ROADMAP.md (none is left),
+one for a job the engine does points at the port's entry point.  Each
+raise is triggered here at a tiny size on the CPU, and every module file
+and entry point it names must exist.
 """
 
 import importlib
@@ -34,25 +34,11 @@ def _v2(pro):
     return lambda: build_v2_job_graph(SPEC, None, pro, device="cpu")
 
 
-def _pod_mesh_across_processes():
-    """``make_pod_mesh`` inside a (faked) two-process group."""
-    import torch.distributed as dist
-
-    from amw_tpu_torch.parallel.mesh import make_pod_mesh
-
-    with mock.patch.object(dist, "is_initialized", lambda: True), \
-            mock.patch.object(dist, "get_world_size", lambda: 2):
-        make_pod_mesh(devices=["cpu"] * 2)
-
-
 ENGINE_V2 = "amw_tpu_torch.runtime.engine.MasteringEngine.master_v2_bytes"
 # case -> (trigger, amw_tpu module files named, what the message points at)
 CASES = {
     "v2_vocal_isolation": (_v2({"apply_vocal_isolation": True}),
                            ["amw_tpu/runtime/engine.py"], ENGINE_V2),
-    "pod_mesh_across_processes": (_pod_mesh_across_processes,
-                                  ["amw_tpu/parallel/mesh.py"],
-                                  "ROADMAP.md"),
 }
 
 

@@ -460,8 +460,6 @@ def test_settings_fields_match_jax():
     left_out = {
         # XLA's persistent compilation cache: no counterpart.
         "compilation_cache_dir",
-        # The JAX engine's multi-host join: CUDA devices show without it.
-        "engine_coordinator", "engine_num_processes", "engine_process_id",
         # Read by no code of either package.
         "ai_limit_free", "ai_limit_pro", "ai_limit_studio",
         "ai_prompt_report", "ai_prompt_nl_config", "ai_prompt_chat",
