@@ -83,3 +83,11 @@ REVERB_PRESETS = {
     "theater":   (3.5, (59, 67, 73, 83),    (0.78, 0.73, 0.68, 0.63),   (10, 14), (0.52, 0.45)),
     "cathedral": (5.0, (97, 103, 109, 127), (0.82, 0.78, 0.74, 0.7),    (15, 19), (0.55, 0.48)),
 }
+
+# The high-frequency trim's crossover and high-band gain (pipeline.py:1701-1702).
+HIGH_FREQ_TRIM_CROSSOVER_HZ = 5000.0
+HIGH_FREQ_TRIM_GAIN = 0.9
+
+# Crossovers used by the *default v2 chain config* (chain.py:116,121) — kept
+# distinct from the v1 pipeline crossovers on purpose (documented drift).
+DEFAULT_CHAIN_CROSSOVERS_HZ = (214.0, 2230.0, 10000.0)

@@ -93,6 +93,29 @@ def f32_decode(raw: bytes, channels: int) -> np.ndarray:
     return out
 
 
+def pcm16_encode_dithered(x: np.ndarray, noise: np.ndarray) -> np.ndarray:
+    """``x`` [C, N] with the dither ``noise`` [C, N] (in LSBs) to int16
+    [C, N] (pipeline.py:880-899): clip to [-1, 1] (NaN as 0), scale by
+    32767, add the noise, round half to even, clip to int16."""
+    lib = get_lib()
+    x = np.ascontiguousarray(x, np.float32)
+    noise = np.ascontiguousarray(noise, np.float32)
+    C, n = x.shape
+    out = np.empty(n * C, np.int16)
+    lib.f32_planar_dither_to_pcm16(x, noise, out, n, C)
+    return out.reshape(n, C).T
+
+
+def pcm24_encode(x: np.ndarray) -> bytes:
+    """``x`` [C, N] to interleaved little-endian 24-bit PCM bytes."""
+    lib = get_lib()
+    x = np.ascontiguousarray(x, np.float32)
+    C, n = x.shape
+    out = np.empty(n * C * 3, np.uint8)
+    lib.f32_planar_to_pcm24(x, out, n, C)
+    return out.tobytes()
+
+
 # ---------- native FLAC codec (flac.cpp) ------------------------------------
 
 def _bind_flac(lib):

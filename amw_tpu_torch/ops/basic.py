@@ -9,14 +9,16 @@ track, never across tracks.
 Reference citations: backend/app/pipeline.py — ``remove_dc_offset`` :134,
 ``remove_intersample_peaks`` :141, ``apply_output_edge_fade_in`` :152,
 ``_apply_limiter_numpy`` :276, ``_compress_soft_knee`` :282,
-``apply_maximizer`` :484, ``apply_parallel_compression`` :1771,
-``_exciter_saturate`` :1179, finalize clip :1904,
+``apply_maximizer`` :484, ``apply_maximizer_lookahead`` :548,
+``apply_parallel_compression`` :1771, ``_exciter_saturate`` :1179,
+finalize clip :1904, the trailing-silence trim :902,
 ``validate_mastered_not_silent`` :939.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..constants import MAXIMIZER_MARGIN_DB, MAXIMIZER_THRESHOLD_DB
 from . import validctx
@@ -181,6 +183,25 @@ def maximizer(x: torch.Tensor) -> torch.Tensor:
     return sign * out_abs.clamp(max=ceiling)
 
 
+def maximizer_lookahead(x: torch.Tensor, sr: int,
+                        lookahead_ms: float = 6.0) -> torch.Tensor:
+    """6 ms-lookahead maximizer with a 2 ms crossfade splice at the boundary
+    (pipeline.py:548-573).  ``x``: [..., N]."""
+    n = x.shape[-1]
+    delay_n = int(sr * (lookahead_ms / 1000.0))
+    if delay_n <= 0 or delay_n >= n:
+        return maximizer(x)
+    delayed = F.pad(x[..., :-delay_n], (delay_n, 0))
+    limited = maximizer(delayed)
+    out = torch.cat([x[..., :delay_n], limited[..., delay_n:]], dim=-1)
+    cf = min(delay_n, max(2, int(sr * 0.002)))
+    # Crossfade region indices delay_n-cf .. delay_n-1 with weight a=(i+1)/cf.
+    t = torch.arange(n, device=x.device)
+    a = ((t - (delay_n - cf) + 1) / float(cf)).clamp(0.0, 1.0).to(x.dtype)
+    in_region = (t >= delay_n - cf) & (t < delay_n)
+    return torch.where(in_region, (1.0 - a) * x + a * limited, out)
+
+
 def parallel_compression(x: torch.Tensor, mix: float = 0.3,
                          ratio: float = 8.0,
                          threshold_db: float = -20.0) -> torch.Tensor:
@@ -215,6 +236,22 @@ def finalize_clip(x: torch.Tensor) -> torch.Tensor:
     """End-of-chain scrub: clip to [-1, 1] and replace NaN/Inf."""
     x = x.clamp(-1.0, 1.0)
     return torch.nan_to_num(x, nan=0.0, posinf=1.0, neginf=-1.0)
+
+
+def auto_blank_end_index(x: torch.Tensor, sr: int,
+                         threshold_dbfs: float = -60.0,
+                         min_silence_sec: float = 0.5) -> torch.Tensor:
+    """Index to trim trailing silence at, a 0-d int64 tensor on ``x``'s
+    device (the host does the slice, since the output length is
+    data-dependent).  Mirrors pipeline.py:902-917: keep through the last
+    sample above threshold plus ``min_silence_sec``.  ``x``: [N] or
+    [C, N], the peak taken over every leading axis."""
+    n = x.shape[-1]
+    peak = x.abs().reshape(-1, n).amax(dim=0)
+    above = peak > db_to_lin(threshold_dbfs)
+    last = n - 1 - torch.argmax(above.flip(0).to(torch.uint8))
+    idx = torch.clamp(last + 1 + int(sr * min_silence_sec), max=n)
+    return torch.where(above.any(), idx, torch.full_like(idx, n))
 
 
 def validate_stats(x: torch.Tensor):

@@ -1,16 +1,17 @@
-"""EQ op builders: target curve, final balance, style EQ, rumble filter.
+"""EQ op builders: target curve, final balance, style EQ, rumble filter,
+high-frequency trim.
 
 Counterpart of ``amw_tpu/ops/eq.py``: the target curve (minimum phase or
 linear phase, optionally on Mid/Side), final spectral balance, style EQ,
-their fusion ``build_final_balance_then_style``, and the rumble filter;
-the high-frequency trim is on no ported path.
+their fusion ``build_final_balance_then_style``, the rumble filter and the
+high-frequency trim.
 Each ``build_*`` returns ``(params, fn)``: ``params`` is a nested list of
 float32 numpy arrays (the op's "weights") and ``fn(x, params)`` applies the
 op to ``[..., N]`` with the tensor version of that list.
 
 Reference semantics: backend/app/pipeline.py:170-273 (target curve),
 :576-607 (final spectral balance), :1401-1434 (style EQ), :1449-1469
-(rumble filter).
+(rumble filter), :1701-1702 (high-frequency trim).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..constants import FINAL_TRIM_DB, STYLE_CONFIGS
 from ..spec import GraphSpec
 from . import design, fft_staged
@@ -286,5 +288,22 @@ def build_rumble_filter(spec: GraphSpec, cutoff_hz: float = 80.0, *, device):
 
     def fn(x, params):
         return zp(x, params[0])
+
+    return [zp.params], fn
+
+
+def build_high_freq_trim(spec: GraphSpec, crossover_hz: float = 5000.0,
+                         high_gain: float = 0.9, *, device=None):
+    """Zero-phase Butterworth-2 low pass at ``crossover_hz``, the highs
+    above it scaled by ``high_gain``, clipped to [-1, 1]; the identity
+    where ``high_gain`` is within 0.001 of 1."""
+    if abs(high_gain - 1.0) < 0.001:
+        return [], lambda x, params: x
+    ba = design.butter_ba_norm(2, min(crossover_hz / spec.nyq, 0.98), "low")
+    zp = make_zp(spec, [ba], device=resolve_device(device))
+
+    def fn(x, params):
+        low = zp(x, params[0])
+        return (low + high_gain * (x - low)).clamp(-1.0, 1.0)
 
     return [zp.params], fn

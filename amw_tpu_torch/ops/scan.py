@@ -380,6 +380,18 @@ def envelope_follower(v: torch.Tensor, attack_coef: float,
     return env.reshape(lead + (n,))
 
 
+def envelope_follower_xsr(x: torch.Tensor, sr: float, attack_sec: float,
+                          release_sec: float, **kw) -> torch.Tensor:
+    """Reference ``_envelope_follower`` (pipeline.py:510-518): the
+    envelope of ``|x|`` ([..., N]) through :func:`envelope_follower`, so
+    a CUDA tensor launches its kernel (the chunked one, or the per-row one
+    on the short route).  ``kw`` goes on to it: ``eps`` only.  The JAX
+    follower's ``min_chunk`` and ``unroll`` are knobs of its XLA route,
+    which has no counterpart here; passing one raises ``TypeError``."""
+    att, rel = ar_coefs(sr, attack_sec, release_sec)
+    return envelope_follower(x.abs(), att, rel, **kw)
+
+
 def deesser_gain_combine(y3: torch.Tensor, sc: torch.Tensor, attack: float,
                          release: float, thresh: float, ratio: float, k: int,
                          *, floor: float = 0.35, nv=None,

@@ -14,13 +14,14 @@ function once, and resolves each submitter's future (a copy of the JAX
 package's class; it runs the batch under ``torch.inference_mode()``,
 which is per thread in PyTorch and does not carry over from the
 submitter, and keeps no reference to a batch once its futures are set,
-so that its device memory goes with its last reader).  The JAX module's
-``BatchedChainRunner`` is not ported: nothing in either package calls it;
-the engine batches its v2 graphs through ``Batcher`` itself.
+so that its device memory goes with its last reader).
+``BatchedChainRunner`` is the batcher over v2 chain configs; the engine
+batches its v2 graphs through ``Batcher`` itself.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from concurrent.futures import Future
@@ -28,6 +29,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .. import resolve_device
+from ..models.chain import compile_chain
 
 
 @dataclass
@@ -147,3 +151,38 @@ class Batcher:
                 if not it.future.done():
                     it.future.set_exception(e)
 
+
+class BatchedChainRunner:
+    """Batcher specialization for v2 chain graphs.
+
+    ``key`` = (spec, canonical config JSON); a batch ``[B, C, N]`` runs
+    once through the key's chain (``models.chain.compile_chain``, cached
+    per key and device, shared with single-track callers).  The JAX
+    package pads a batch to a power of two to bound its XLA compiles;
+    the port compiles nothing per batch size, so a batch runs at its own
+    size.  Each row is the single-track chain's output on that row (bit
+    for bit on the CPU; on the card within float32 rounding)."""
+
+    def __init__(self, *, window_ms: float = 50.0, max_batch: int = 8,
+                 device=None):
+        self.device = resolve_device(device)
+        self.batcher = Batcher(self._run, window_ms=window_ms,
+                               max_batch=max_batch)
+        self.batcher.start()
+
+    def _run(self, key, xb: np.ndarray):
+        spec, config_json = key
+        chain = compile_chain(spec, json.loads(config_json),
+                              device=self.device)
+        x = torch.as_tensor(np.asarray(xb, np.float32), device=self.device)
+        y = chain.fn(x, chain.params)
+        return list(y.cpu().numpy())
+
+    def master(self, spec, config_json: str, x: np.ndarray,
+               timeout: float = 600.0) -> np.ndarray:
+        """Blocking per-call API (runs on a worker thread): submit and wait."""
+        fut = self.batcher.submit((spec, config_json), x)
+        return fut.result(timeout=timeout)
+
+    def close(self):
+        self.batcher.stop()

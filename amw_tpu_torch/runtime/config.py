@@ -210,3 +210,12 @@ class Settings:
 
 
 settings = Settings()
+
+
+def reload_settings():
+    """Re-read :class:`Settings` from the environment into ``settings``.
+    Modules that imported ``settings`` by name keep the object they
+    imported, as in the JAX package."""
+    global settings
+    settings = Settings()
+    return settings

@@ -291,7 +291,22 @@ Phases, each printing JSON lines:
              each rank's cold and warm wall, the exchange's ms and bytes,
              the 13 kernels' launches by rank (summing to this process's);
              a worker's non-zero exit or timeout fails the run;
-16. a ``kernels`` line: each kernel's launches on the path that uses it
+16. last_ops — the last public functions of ``amw_tpu`` that the port
+             took on, at 180 s stereo: ``eq.build_high_freq_trim`` on the
+             8-track batch (its fast pass on kernels 4, 8, 5 at 2^23),
+             ``scan.envelope_follower_xsr`` on its 16 rows (2') and on a
+             2 s stereo clip (3), ``basic.maximizer_lookahead`` on the
+             batch and ``basic.auto_blank_end_index`` of each track (no
+             kernel): each call's launches by kernel (exactly those
+             kernels), its CUDA-event ms, its output against the port's
+             CPU path from a parity worker (<= -90 dBFS, the index
+             equal); then ``runtime.batcher.BatchedChainRunner`` with 4
+             of the batch's tracks on 4 threads at the default
+             ``standard`` chain config, cold and warm (two batches of 4,
+             the warm one's launches, wall and realtime factor), each
+             row within -90 dBFS of the single-track ``compile_chain``
+             output on the card (the runner's cached graph);
+17. a ``kernels`` line: each kernel's launches on the path that uses it
    (the v1 180 s batch for kernels 1, 2, 4, 5, 9, 11; its split run for 6
    and 10; the split 180 s analysis for 7; the v2 runs for 8, 12, 2' and
    3), error, times, bound.
@@ -340,17 +355,18 @@ from amw_tpu_torch.constants import (DYNAMIC_EQ_MASTERING_BANDS,
                                      MULTIBAND_CONFIG, PRESET_LUFS,
                                      STYLE_CONFIGS)
 from amw_tpu_torch.models import (analyze, build_v1_pipeline,
-                                  build_v2_job_graph, default_chain_config,
-                                  lufs_analyze_tool)
+                                  build_v2_job_graph, compile_chain,
+                                  default_chain_config, lufs_analyze_tool)
 from amw_tpu_torch.convert import to_device
 from amw_tpu_torch.models.analyze import _analysis_graph, _bucket_for
 from amw_tpu_torch.models.v2_job import resolve_denoise
 from amw_tpu_torch.models import htdemucs, vocal
 from amw_tpu_torch.models.vocal import isolate_vocal, isolate_vocal_bytes
-from amw_tpu_torch.ops import (_cuda, design, dither, fdfilter, meters, scan,
-                               validctx)
+from amw_tpu_torch.ops import (_cuda, basic, design, dither, fdfilter, meters,
+                               scan, validctx)
 from amw_tpu_torch.ops import fft_staged as fs
 from amw_tpu_torch.ops.bands import BandMap
+from amw_tpu_torch.ops.eq import build_high_freq_trim
 from amw_tpu_torch.ops.exciter import build_harmonic_exciter
 from amw_tpu_torch.ops.reverb import build_reverb
 from amw_tpu_torch.ops.spectral import (build_reference_match,
@@ -367,6 +383,7 @@ from amw_tpu_torch.runtime.bot import Bot
 from amw_tpu_torch.runtime import db as service_db
 from amw_tpu_torch.runtime import jobs as service_jobs
 from amw_tpu_torch.runtime import progress, service, settings_store
+from amw_tpu_torch.runtime.batcher import BatchedChainRunner
 from amw_tpu_torch.runtime.config import settings as runtime_settings
 from amw_tpu_torch.runtime.engine import MasteringEngine
 from amw_tpu_torch.scripts import (gen_api_docs, gen_demo_assets,
@@ -5049,6 +5066,167 @@ def phase_pod(dev) -> None:
           "phase_s": time.perf_counter() - t_phase})
 
 
+# ---- the last public functions ----------------------------------------------
+
+LAST_ENV_S = (0.005, 0.1)  # envelope_follower_xsr's attack and release, s
+LAST_CLIP_SEED = 80
+RUNNER_TRACKS = 4
+
+
+def last_ops_inputs() -> tuple:
+    """The ``last_ops`` phase's inputs: the 180 s batch (``make_batch``,
+    8 stereo tracks, the last two padded), its 16 rows, and a 2 s stereo
+    clip."""
+    xb, _ = make_batch(*LONG, BATCH, 2)
+    return xb, xb.reshape(-1, xb.shape[-1]), make_track(
+        SR, SHORT_CLIP_S, seed=LAST_CLIP_SEED)
+
+
+def last_ops_calls(dev, xb, rows, clip) -> dict:
+    """The phase's functions on ``dev`` by name, each a call with no
+    arguments (inputs and the trim's params already on ``dev``)."""
+    spec = GraphSpec(sr=SR, n=xb.shape[-1], channels=2)
+    params, trim = build_high_freq_trim(spec, device=dev)
+    params = to_device(params, dev)
+    x, r, c = (torch.from_numpy(a).to(dev) for a in (xb, rows, clip))
+    return {
+        "high_freq_trim": lambda: trim(x, params),
+        "envelope_xsr": lambda: scan.envelope_follower_xsr(r, SR,
+                                                           *LAST_ENV_S),
+        "envelope_xsr_clip": lambda: scan.envelope_follower_xsr(
+            c, SR, *LAST_ENV_S),
+        "maximizer_lookahead": lambda: basic.maximizer_lookahead(x, SR),
+        "auto_blank_end_index": lambda: torch.stack(
+            [basic.auto_blank_end_index(x[i], SR) for i in range(BATCH)]),
+    }
+
+
+def cpu_last_ops() -> tuple:
+    """The ``last_ops`` phase's functions on the port's CPU path (in a
+    parity worker).  Returns their outputs by name and the seconds."""
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = {k: f().numpy() for k, f in
+               last_ops_calls(torch.device("cpu"), *last_ops_inputs()).items()}
+        return out, time.perf_counter() - t0
+
+
+def last_ops_runner(dev, xb: np.ndarray) -> dict:
+    """``BatchedChainRunner`` on the card: ``RUNNER_TRACKS`` 180 s stereo
+    tracks of the batch mastered on as many threads at the default
+    ``standard`` chain config, cold (the chain's build included) and warm
+    (launches by kernel, the wall, the realtime factor); each row within
+    -90 dBFS of the single-track ``compile_chain`` output on the card,
+    which shares the runner's cached graph."""
+    n = xb.shape[-1]
+    spec = GraphSpec(sr=SR, n=n, channels=2)
+    config = default_chain_config(TARGET_LUFS, "standard")
+    cfg_json = json.dumps(config, sort_keys=True, default=str)
+    tracks = [xb[i] for i in range(RUNNER_TRACKS)]
+    runner = BatchedChainRunner(window_ms=1000.0, max_batch=RUNNER_TRACKS,
+                                device=dev)
+    sizes, run = [], runner.batcher._run_batch
+
+    def spy(key, xs, *aux):
+        sizes.append(xs.shape[0])
+        return run(key, xs, *aux)
+
+    runner.batcher._run_batch = spy
+
+    def burst() -> tuple[list, float]:
+        with ThreadPoolExecutor(RUNNER_TRACKS) as pool:
+            t0 = time.perf_counter()
+            out = list(pool.map(
+                lambda x: runner.master(spec, cfg_json, x, timeout=300.0),
+                tracks))
+            return out, time.perf_counter() - t0
+
+    try:
+        _, cold_s = burst()
+        torch.cuda.synchronize()
+        reset_counts()
+        with PARITY.paused():
+            ys, warm_s = burst()
+        launches = read_counts()
+    finally:
+        runner.close()
+    check(sizes == [RUNNER_TRACKS] * 2,
+          f"runner: batches {sizes}, expected two of {RUNNER_TRACKS}")
+    chain = compile_chain(spec, config, device=dev)
+    errs = []
+    with torch.no_grad():
+        for x, y in zip(tracks, ys):
+            check(y.shape == x.shape and bool(np.all(np.isfinite(y)))
+                  and float(np.abs(y).max()) <= 1.0,
+                  f"runner: output {y.shape}")
+            one = chain.fn(torch.from_numpy(x).to(dev), chain.params)
+            errs.append(float(np.max(np.abs(
+                y.astype(np.float64) - one.cpu().numpy()))))
+    err_db = 20 * np.log10(max(max(errs), 1e-30))
+    check(err_db <= PARITY_DBFS,
+          f"runner: {err_db:.1f} dBFS from the single-track chain")
+    return {"tracks": RUNNER_TRACKS, "track_s": LONG[0], "batches": sizes,
+            "cold_s": cold_s, "warm_s": warm_s,
+            "realtime_factor": RUNNER_TRACKS * LONG[0] / warm_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "max_err_vs_single": max(errs),
+            "max_err_vs_single_dbfs": err_db,
+            "modules": chain.module_ids}
+
+
+# the kernels each function must launch on the card, by name
+LAST_OPS_KERNELS = {
+    "high_freq_trim": ("fft_stage_a", "fft_bc_cb", "fft_stage_a_inv_join"),
+    "envelope_xsr": ("env_scan",), "envelope_xsr_clip": ("env_rows",),
+    "maximizer_lookahead": (), "auto_blank_end_index": ()}
+
+
+def phase_last_ops(dev) -> None:
+    """The last public functions of the port on the card: (a) each of
+    ``last_ops_calls`` once (launches by kernel, reset just before, read
+    just after: the trim's fast pass on kernels 4, 8, 5 at 2^23, the
+    chunked envelope on 2′, the clip's on 3, the maximizer and the
+    silence index on none), its output against the port's CPU path
+    (``cpu_last_ops``, from a parity worker: <= -90 dBFS, the index
+    equal), its CUDA-event ms; (b) :func:`last_ops_runner`."""
+    t_phase = time.perf_counter()
+    inputs = last_ops_inputs()
+    calls = last_ops_calls(dev, *inputs)
+    got, ops = {}, {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            got[name] = fn().cpu().numpy()
+            launches = {k: v for k, v in read_counts().items() if v}
+            check(set(launches) == set(LAST_OPS_KERNELS[name]),
+                  f"{name}: launched {launches}, expected "
+                  f"{LAST_OPS_KERNELS[name]}")
+            ops[name] = {"launches": launches, "ms": cuda_ms(fn, reps=10),
+                         "shape": list(got[name].shape)}
+    t0 = time.perf_counter()
+    want, cpu_s = PARITY.result("last_ops")
+    wait_s = time.perf_counter() - t0
+    for name, entry in ops.items():
+        g, w = got[name], want[name]
+        check(g.shape == w.shape and bool(np.all(np.isfinite(g))),
+              f"{name}: output {g.shape} against {w.shape}")
+        if name == "auto_blank_end_index":
+            check(np.array_equal(g, w), f"{name}: {g} against {w}")
+            entry["index"] = g.tolist()
+            continue
+        err = float(np.max(np.abs(g.astype(np.float64) - w)))
+        entry["max_err_vs_cpu"] = err
+        entry["max_err_vs_cpu_dbfs"] = 20 * np.log10(max(err, 1e-30))
+        check(entry["max_err_vs_cpu_dbfs"] <= PARITY_DBFS,
+              f"{name}: {entry['max_err_vs_cpu_dbfs']:.1f} dBFS from the CPU")
+    del calls, got, want
+    emit({"phase": "last_ops", "ops": ops, "cpu_plain_s": cpu_s,
+          "cpu_parity_wait_s": wait_s,
+          "runner": last_ops_runner(dev, inputs[0]),
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     phase_device()
     dev = torch.device("cuda")
@@ -5071,6 +5249,7 @@ def main() -> None:
     try:
         for label, run in runs.items():
             PARITY.submit(label, *run.parity())
+        PARITY.submit("last_ops", cpu_last_ops, ())
         run_phases(dev, kernels, runs)
         check(not PARITY.jobs, f"CPU parity jobs never collected: "
               f"{list(PARITY.jobs)}")
@@ -5172,6 +5351,7 @@ def run_phases(dev, kernels: dict, runs: dict) -> None:
     phase_train(dev)
     phase_mxu(dev)
     phase_pod(dev)
+    phase_last_ops(dev)
 
     # each kernel's launches on the path that uses it
     paths = {name: ("v1_180s", v1) for name in kernels}
